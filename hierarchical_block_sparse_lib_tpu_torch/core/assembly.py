@@ -1,0 +1,114 @@
+"""Element assembly / extraction (port of ``core/assembly.py``):
+one sort-by-block-id plus a segment scatter instead of a per-element
+quadtree descent."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from hierarchical_block_sparse_lib_tpu_torch.core.block_matrix import (
+    SENTINEL,
+    BlockMatrix,
+    check_geometry,
+    compact_sorted,
+    first_of_run,
+)
+
+
+def empty(
+    n_rows: int,
+    n_cols: int,
+    block_size: int,
+    cap: int,
+    dtype=torch.float32,
+    device="cpu",
+) -> BlockMatrix:
+    """All-zero matrix with storage capacity for `cap` blocks."""
+    check_geometry(n_rows, n_cols, block_size)
+    return BlockMatrix(
+        ids=torch.full((cap,), SENTINEL, dtype=torch.int32, device=device),
+        data=torch.zeros((cap, block_size, block_size), dtype=dtype, device=device),
+        nnz=torch.zeros((), dtype=torch.int32, device=device),
+        n_rows=n_rows,
+        n_cols=n_cols,
+        block_size=block_size,
+    )
+
+
+def from_coo(
+    rows,
+    cols,
+    vals,
+    n_rows: int,
+    n_cols: int | None = None,
+    block_size: int = 128,
+    cap: int | None = None,
+    device="cpu",
+) -> BlockMatrix:
+    """Build from COO triplets (duplicate entries sum).  `cap` defaults to
+    the exact number of touched blocks."""
+    n_cols = n_rows if n_cols is None else n_cols
+    check_geometry(n_rows, n_cols, block_size)
+    b = block_size
+    nbc = -(-n_cols // b)
+    rows = torch.as_tensor(np.asarray(rows), device=device).to(torch.int64)
+    cols = torch.as_tensor(np.asarray(cols), device=device).to(torch.int64)
+    vals = torch.as_tensor(np.asarray(vals), device=device)
+    bid = (rows // b) * nbc + cols // b
+    if cap is None:
+        cap = max(int(torch.unique(bid).numel()), 1)
+    order = torch.argsort(bid, stable=True)
+    bid_s, rows_s, cols_s, vals_s = bid[order], rows[order], cols[order], vals[order]
+    first = first_of_run(bid_s)
+    slot = (torch.cumsum(first, 0) - 1).clamp_(max=cap)
+    ids = torch.full((cap + 1,), SENTINEL, dtype=torch.int32, device=device)
+    ids[slot] = bid_s.to(torch.int32)
+    data = torch.zeros((cap + 1, b, b), dtype=vals.dtype, device=device)
+    data.index_put_((slot, rows_s % b, cols_s % b), vals_s, accumulate=True)
+    return BlockMatrix(
+        ids=ids[:cap], data=data[:cap], nnz=first.sum().to(torch.int32),
+        n_rows=n_rows, n_cols=n_cols, block_size=block_size,
+    )
+
+
+def from_dense(
+    x, block_size: int = 128, cap: int | None = None, threshold: float = 0.0
+) -> BlockMatrix:
+    """Blockify a dense matrix, storing blocks with frob norm > threshold.
+    `x` is a tensor (its device is kept) or anything numpy can read."""
+    x = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
+    n_rows, n_cols = x.shape
+    check_geometry(n_rows, n_cols, block_size)
+    b = block_size
+    nbr, nbc = -(-n_rows // b), -(-n_cols // b)
+    xp = torch.zeros((nbr * b, nbc * b), dtype=x.dtype, device=x.device)
+    xp[:n_rows, :n_cols] = x
+    blocks = xp.reshape(nbr, b, nbc, b).permute(0, 2, 1, 3).reshape(-1, b, b)
+    acc = torch.promote_types(blocks.dtype, torch.float32)
+    norms2 = torch.sum(torch.square(blocks.to(acc)), dim=(1, 2))
+    keep = norms2 > torch.tensor(threshold, dtype=acc) ** 2
+    all_ids = torch.arange(nbr * nbc, dtype=torch.int32, device=x.device)
+    ids = torch.where(keep, all_ids, SENTINEL).to(torch.int32)
+    blocks = torch.where(keep[:, None, None], blocks, 0)
+    if cap is None:
+        cap = max(int(keep.sum()), 1)
+    out_ids, out_data, nnz = compact_sorted(ids, blocks, cap)
+    return BlockMatrix(
+        ids=out_ids, data=out_data, nnz=nnz,
+        n_rows=n_rows, n_cols=n_cols, block_size=block_size,
+    )
+
+
+def to_dense(a: BlockMatrix) -> torch.Tensor:
+    """Densify (the test oracle path)."""
+    b = a.block_size
+    nbr, nbc = a.nb_rows, a.nb_cols
+    valid = a.valid_mask()
+    ids = a.ids.to(torch.int64)
+    brow = torch.where(valid, ids // nbc, nbr)  # trash row nbr
+    bcol = torch.where(valid, ids % nbc, 0)
+    grid = torch.zeros((nbr + 1, nbc, b, b), dtype=a.dtype, device=a.device)
+    grid.index_put_((brow, bcol), a.data, accumulate=True)
+    full = grid[:nbr].permute(0, 2, 1, 3).reshape(nbr * b, nbc * b)
+    return full[: a.n_rows, : a.n_cols]

@@ -1,0 +1,126 @@
+"""Shared inputs and comparisons for the tests that hold the PyTorch port
+(`hierarchical_block_sparse_lib_tpu_torch`) against the JAX package.
+
+Inputs are made once with numpy from a seed and handed to both packages,
+so they are bit-identical on either side.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import jax.numpy as jnp
+import torch
+
+import hierarchical_block_sparse_lib_tpu as jx
+from hierarchical_block_sparse_lib_tpu_torch.convert import (
+    block_matrix_from_numpy,
+    fine_flat_from_numpy,
+    to_numpy,
+)
+
+SENTINEL = np.int32(np.iinfo(np.int32).max)
+
+
+def random_blocks(nbr, nbc, b, density, seed, empty_rows=(), pad=0):
+    """Sorted ids and N(0,1) blocks of a random nbr x nbc block pattern;
+    block rows in `empty_rows` are empty; `pad` SENTINEL/zero slots are
+    appended (capacity above nnz)."""
+    rng = np.random.default_rng(seed)
+    n_blocks = max(1, int(round(density * nbr * nbc)))
+    ids = np.sort(rng.choice(nbr * nbc, n_blocks, replace=False))
+    ids = ids[~np.isin(ids // nbc, empty_rows)].astype(np.int32)
+    data = rng.standard_normal((ids.size, b, b)).astype(np.float32)
+    nnz = ids.size
+    ids = np.concatenate([ids, np.full(pad, SENTINEL, np.int32)])
+    data = np.concatenate([data, np.zeros((pad, b, b), np.float32)])
+    return ids, data, nnz
+
+
+def matrix_pair(nbr, nbc, b, density, seed, empty_rows=(), pad=0):
+    """(JAX BlockMatrix, port BlockMatrix) of the same random input."""
+    ids, data, nnz = random_blocks(nbr, nbc, b, density, seed, empty_rows, pad)
+    geo = dict(n_rows=nbr * b, n_cols=nbc * b, block_size=b)
+    jm = jx.BlockMatrix(
+        ids=jnp.asarray(ids), data=jnp.asarray(data),
+        nnz=jnp.asarray(nnz, jnp.int32), **geo,
+    )
+    return jm, block_matrix_from_numpy(ids, data, nnz, **geo)
+
+
+def to_port(m):
+    """A JAX BlockMatrix or FineFlat as the port's counterpart."""
+    fields = to_numpy(m)
+    if isinstance(m, jx.FineFlat):
+        return fine_flat_from_numpy(**fields)
+    return block_matrix_from_numpy(**fields)
+
+
+def np_(x):
+    return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def assert_same_matrix(port_m, jax_m, rtol=1e-5, atol=1e-5):
+    """Ids, nnz and geometry exactly; payloads within the tolerance."""
+    np.testing.assert_array_equal(np_(port_m.ids), np_(jax_m.ids))
+    assert int(port_m.nnz) == int(jax_m.nnz)
+    assert (port_m.n_rows, port_m.n_cols, port_m.block_size) == (
+        jax_m.n_rows, jax_m.n_cols, jax_m.block_size,
+    )
+    np.testing.assert_allclose(
+        np_(port_m.data), np_(jax_m.data), rtol=rtol, atol=atol
+    )
+
+
+# Kernel-module tolerances.  "highest"/"high": f32 sums taken in another
+# order.  "default": both packages round the same alpha*A and B to bf16
+# and take exact f32 products; only the summation order differs.
+FINE_TOL = {"highest": 1e-5, "high": 1e-5, "default": 1e-4}
+
+
+def check_fine_spgemm(b, precision, layout="flat"):
+    """The port's fine_spgemm (on the CPU: its plain version) against the
+    JAX kernel in interpret mode, on rectangular operands with empty rows,
+    alpha = -0.5 and three tail slots past the product support."""
+    from hierarchical_block_sparse_lib_tpu.kernels.pallas_gemm_fine import (
+        fine_spgemm as jax_fine_spgemm,
+    )
+    from hierarchical_block_sparse_lib_tpu.ops.spgemm import plan_spgemm_ex
+    from hierarchical_block_sparse_lib_tpu_torch.kernels.pallas_gemm_fine import (
+        fine_spgemm,
+    )
+
+    ja, ta = matrix_pair(8, 12, b, 0.3, b, empty_rows=(1, 5), pad=2)
+    jb, tb = matrix_pair(12, 6, b, 0.3, b + 1, empty_rows=(2,))
+    pc, oc, mbr, mcr = plan_spgemm_ex(ja, jb)
+    out_cap = oc + 3
+    plan = jx.make_fine_plan(ja, jb, pc, out_cap, (mbr, mcr))
+    if layout == "flat":
+        ja_data, jb_data = jx.fine_pack(ja).data, jx.fine_pack(jb).data
+    else:
+        ja_data, jb_data = ja.data, jb.data
+    args = (ja.nb_rows, jb.nb_rows, jb.nb_cols, out_cap, mbr, mcr)
+    kw = dict(precision=precision, block_size=b, out_layout=layout, alpha=-0.5)
+    want = np.asarray(
+        jax_fine_spgemm(ja.ids, ja_data, jb.ids, jb_data, plan.out_ids, *args, **kw)
+    )
+    got = fine_spgemm(
+        ta.ids, torch.from_numpy(np.array(ja_data)), tb.ids,
+        torch.from_numpy(np.array(jb_data)),
+        torch.from_numpy(np.array(plan.out_ids)), *args, **kw,
+    ).numpy()
+    assert got.shape == want.shape
+    tol = FINE_TOL[precision]
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+    assert not np.any(got[oc:]) and not np.any(want[oc:])  # zero tail
+
+
+def assert_same_info(port_info, jax_info):
+    """Every MultiplyInfo counter and flag exactly."""
+    for field in (
+        "n_block_pairs", "n_out_blocks", "pair_overflow", "out_overflow",
+        "row_overflow", "plan_mismatch", "n_leaf_multiplies",
+    ):
+        got = np_(getattr(port_info, field))
+        want = np_(getattr(jax_info, field))
+        assert got.dtype.kind == want.dtype.kind, field
+        assert got == want, (field, got, want)
