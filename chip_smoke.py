@@ -7,26 +7,46 @@ Phases (any failure raises, so the script exits non-zero without its
 final line):
 
 1. versions, and the card's name and power limit (nvidia-smi);
-2. build the Hopper kernels from the sources in this checkout;
-3. kernel vs its plain PyTorch version at small shapes, b in {16, 32, 64}
-   x the three precision tiers, on rectangular alpha != 1 operands with
-   empty rows, plus the canonical layout and the zero tail;
-4. the main path at its configured size, B2: random 16384^2, 5% block
+2. build the Hopper kernels from the sources in this checkout, one nvcc
+   per source, all started together;
+3. each kernel vs its plain PyTorch version at small shapes: the fine
+   kernel at b in {16, 32, 64} x the three precision tiers (rectangular
+   alpha != 1 operands with empty rows, the canonical layout, the zero
+   tail); the row-panel kernel at b=128 x the three tiers, bf16 data, the
+   SpAMM skip, triu and the aligned accumulator, with union slots that no
+   product reaches and a tail; both norm kernels, f32 and bf16;
+4. the B2 path at its configured size: random 16384^2, 5% block
    density, leaf 32, seed 2, through plan_spgemm_ex -> fine_pack ->
    make_fine_plan -> fine_matmul(plan=) -> fine_add -> fine_scale ->
    fine_unpack, held against an f64 dense oracle and the host plan's
-   counters, with the kernel's launch count read around it;
-5. the kernel vs the plain version at the main path's shapes, and
-   bitwise determinism of a repeated planned multiply;
-6. CUDA-event times of the planned multiply through the kernel and
-   through the plain version.
+   counters, with the fine kernel's launch count read around it;
+5. the fine kernel vs its plain version at B2's shapes, bitwise
+   determinism of a repeated planned multiply, and CUDA-event times;
+6. one SP2 step of the graft entry's input (1024^2, band 48, 16-blocks
+   coarsened to 128) held against the f64 product of the same step;
+7. the B3 path at its configured size (bench.py's truncation pipeline:
+   4096^2 band 256, leaf 128, symmetrised, scaled, shifted; 5 SP2 steps
+   at tau=1e-6): profile_purify against the JAX package's capacity
+   profile, unplanned purify_scan, plan_purify, planned purify_scan with
+   no host sync allowed; planned and unplanned bitwise equal, 5 launches
+   of each kernel per scan, and the iterate against the port's float64
+   path; launch counts read around the whole path;
+8. the row-panel and norm kernels vs their plain versions at B3's
+   step-2 shapes, and CUDA-event times of the scans, the kernels, their
+   plain versions and one library call;
+9. purification at 1024^2 (tau=1e-7, 40 steps) against the spectral
+   projector from an f64 eigendecomposition;
+10. a torch.profiler trace of 10 planned B3 scans: device time by
+    kernel, launches, and the device's idle share.
 
-Prints one JSON line of per-kernel results, then, as the last line,
-``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device.
+Prints the card line and one JSON line of per-kernel results, then, as
+the last line, ``{"ok": true, "device": {...}}``.  Exits non-zero
+without a CUDA device.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -35,9 +55,39 @@ import time
 
 import numpy as np
 
-KERNEL_SOURCE = "hierarchical_block_sparse_lib_tpu_torch/kernels/csrc/gemm_fine.cu"
-KERNEL_REPLACES = "hierarchical_block_sparse_lib_tpu/kernels/pallas_gemm_fine.py:450"
+_CSRC = "hierarchical_block_sparse_lib_tpu_torch/kernels/csrc/"
+_TPU = "hierarchical_block_sparse_lib_tpu/kernels/"
+# name -> (source, TPU kernel it replaces)
+KERNELS = {
+    "fine_spgemm": (_CSRC + "gemm_fine.cu", _TPU + "pallas_gemm_fine.py:450"),
+    "rows_spgemm": (_CSRC + "gemm_rows.cu", _TPU + "pallas_gemm_rows.py:549"),
+    "block_frob_squared": (_CSRC + "norms.cu", _TPU + "pallas_norms.py:67"),
+    "norms_and_keep": (_CSRC + "norms.cu", _TPU + "pallas_norms.py:92"),
+}
 TOL = {"highest": 1e-5, "high": 1e-5, "default": 1e-4}
+# Row-panel kernel vs plain version, relative to max|C|: both take the
+# same (rounded) operands at every tier and sum f32 products in another
+# order.
+ROWS_TOL = 1e-5
+# B3's capacity profile as the JAX package computes it (on the CPU,
+# profile_purify(..., backend="xla") on bench.py's B3 input): per-step
+# pairs, union and kept blocks; caps pair, out, iterate and rows.
+B3_PROFILE = dict(
+    per_step_pairs=(750, 2292, 4498, 4498, 4498),
+    per_step_out=(268, 472, 644, 644, 644),
+    per_step_kept=(268, 374, 374, 374, 424),
+    pair_cap=4498, out_cap=644, cap=424, row_caps=(13, 25),
+)
+# H100 SXM data sheet at 700 W: FP32 outside the tensor cores, HBM3.
+FP32_FLOPS = 67e12
+HBM_BYTES = 3.35e12
+DEVICE = "cuda"
+
+
+def bound(flops: float, nbytes: float):
+    """(ms, "operations" or "bytes"): the least time the card could take."""
+    t_ops, t_bytes = flops / FP32_FLOPS, nbytes / HBM_BYTES
+    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
 
 
 def card_line() -> str:
@@ -48,13 +98,14 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def random_pattern(nbr, nbc, b, density, seed, empty_rows=(), device="cuda"):
+def random_pattern(nbr, nbc, b, density, seed, empty_rows=(), device=None):
     """Random block-sparse matrix with dense N(0,1) blocks; block rows in
     `empty_rows` hold nothing."""
     import torch
 
     from hierarchical_block_sparse_lib_tpu_torch import BlockMatrix
 
+    device = device or DEVICE
     rng = np.random.default_rng(seed)
     n_blocks = max(1, int(round(density * nbr * nbc)))
     ids = np.sort(rng.choice(nbr * nbc, n_blocks, replace=False))
@@ -148,6 +199,428 @@ def cuda_time_ms(fn, warmup=2, reps=7):
     return statistics.median(times), times
 
 
+def rel_err(got, want) -> float:
+    """max|got - want| / max|want| (0 for an all-zero pair)."""
+    scale = float(want.abs().max()) if want.numel() else 0.0
+    diff = float((got.float() - want.float()).abs().max()) if got.numel() else 0.0
+    return diff / scale if scale else diff
+
+
+def midpoint_tau(values):
+    """A threshold halfway between the two middle sorted values, so no
+    value lies near it."""
+    v = sorted(float(x) for x in values)
+    m = len(v) // 2
+    return 0.5 * (v[m - 1] + v[m])
+
+
+def small_rows():
+    """Phase 3: the row-panel kernel vs its plain version at b=128."""
+    import torch
+
+    import hierarchical_block_sparse_lib_tpu_torch as hbsm
+    from hierarchical_block_sparse_lib_tpu_torch.kernels.pallas_gemm_rows import (
+        rows_spgemm,
+        rows_spgemm_reference,
+    )
+    from hierarchical_block_sparse_lib_tpu_torch.ops.spgemm import plan_spgemm_ex
+
+    b = 128
+    A = random_pattern(6, 8, b, 0.35, seed=7, empty_rows=(1,))
+    B = random_pattern(8, 5, b, 0.35, seed=8, empty_rows=(2,))
+    pc, oc, mbr, mcr = plan_spgemm_ex(A, B)
+    # Union slots in A's empty row 1 that no product reaches, then a tail.
+    extra = torch.tensor([5, 8], dtype=torch.int32, device=DEVICE)
+    plan = hbsm.make_plan(A, B, pc, accum_ids=extra, out_cap=oc + 2 + 3)
+    out_ids, out_cap = plan.out_ids, oc + 5
+    args = (A.ids, A.data, B.ids, B.data, out_ids, A.nb_rows, B.nb_rows,
+            B.nb_cols, out_cap, mbr, mcr)
+    no_product = (out_ids == 5) | (out_ids == 8) | (out_ids == 2**31 - 1)
+    an2 = A.data.square().sum((1, 2))
+    bn2 = B.data.square().sum((1, 2))
+    pair_norms = an2[plan.a_idx[:pc].long()] * bn2[plan.b_idx[:pc].long()]
+    acc = torch.randn((out_cap, b, b), device=DEVICE)
+    cases = [(p, {}) for p in ("highest", "high", "default")] + [
+        ("highest", dict(a_norms2=an2, b_norms2=bn2,
+                         tau2=midpoint_tau(pair_norms.tolist()))),
+        ("highest", dict(triu=True)),
+        ("highest", dict(acc_data=acc)),
+        ("bf16", {}),
+    ]
+    for prec, opts in cases:
+        cargs = args
+        if prec == "bf16":
+            cargs = args[:1] + (A.data.bfloat16(),) + args[2:3] + (B.data.bfloat16(),) + args[4:]
+            prec = "highest"
+        got = rows_spgemm(*cargs, precision=prec, **opts)
+        want = rows_spgemm_reference(*cargs, precision=prec, **opts)
+        torch.cuda.synchronize()
+        err = rel_err(got, want)
+        name = f"b=128 {prec} {sorted(opts) or ''}"
+        if not err <= ROWS_TOL:
+            raise AssertionError(f"rows {name}: rel err {err:.3e} > {ROWS_TOL}")
+        sent = out_ids == 2**31 - 1
+        if torch.count_nonzero(got[sent]):
+            raise AssertionError(f"rows {name}: tail slots not zero")
+        union = no_product & ~sent  # union slots that no product reaches
+        start = acc[union] if "acc_data" in opts else torch.zeros_like(got[union])
+        if not torch.equal(got[union], start):
+            raise AssertionError(f"rows {name}: slots with no product changed")
+        print(f"  rows {name:40s} kernel-vs-plain rel err={err:.3e}")
+
+
+def small_norms():
+    """Phase 3: both norm kernels vs their plain versions."""
+    import torch
+
+    from hierarchical_block_sparse_lib_tpu_torch.kernels import pallas_norms as pn
+
+    g = torch.Generator(device=DEVICE).manual_seed(3)
+    data = torch.randn((37, 128, 128), device=DEVICE, generator=g)
+    data[5] = 0
+    data[20] = 0
+    for x in (data, data.bfloat16()):
+        n2_plain = pn.block_frob_squared_reference(x)
+        tau = midpoint_tau(n2_plain.sqrt().tolist())
+        n2 = pn.block_frob_squared(x)
+        m2, keep = pn.norms_and_keep(x, tau)
+        m2_plain, keep_plain = pn.norms_and_keep_reference(x, tau)
+        torch.cuda.synchronize()
+        for name, got in (("block_frob_squared", n2), ("norms_and_keep", m2)):
+            if not torch.allclose(got, n2_plain, rtol=1e-5, atol=0):
+                raise AssertionError(f"{name} {x.dtype}: differs from plain version")
+        if not torch.equal(keep, keep_plain) or not torch.equal(m2_plain, n2_plain):
+            raise AssertionError(f"norms_and_keep {x.dtype}: keep differs")
+        if float(n2[5]) != 0.0 or float(n2[20]) != 0.0:
+            raise AssertionError("zero blocks do not reduce to 0")
+        err = float((n2 - n2_plain).abs().max() / n2_plain.max())
+        print(f"  norms {str(x.dtype):15s} cap=37 rel err={err:.3e}, keep equal")
+
+
+def graft_step():
+    """Phase 6: one SP2 step of the graft entry's input vs its f64 product."""
+    import torch
+
+    import hierarchical_block_sparse_lib_tpu_torch as hbsm
+    from hierarchical_block_sparse_lib_tpu_torch.ops.spgemm import plan_spgemm_ex
+    from hierarchical_block_sparse_lib_tpu_torch.utils import generators as gen
+
+    n, bw = 1024, 48
+    r, c, v = gen.banded_coo(n, bw, seed=0)
+    x = hbsm.from_coo(r, c, v, n, block_size=16)
+    x = hbsm.coarsen(x, 8)
+    x = hbsm.scale(x, 0.01)
+    x = hbsm.add(x, hbsm.eye(n, 128), beta=0.5, cap=x.cap + n // 128)
+    pc, oc, mbr, mcr = plan_spgemm_ex(x, x)
+    nb = n // 128
+    y, st = hbsm.sp2_step(
+        x, tau=1e-7, pair_cap=2 * pc, out_cap=2 * oc, target_trace=n / 2,
+        row_caps=(min(nb, 2 * mbr), min(nb, 2 * mcr)),
+    )
+    flags = [bool(getattr(st, f)) for f in (
+        "pair_overflow", "out_overflow", "repack_overflow", "plan_mismatch")]
+    if any(flags):
+        raise AssertionError(f"graft step flags {flags}")
+    dx = hbsm.to_dense(x).double()
+    sq = float(st.trace) > n / 2
+    want = dx @ dx if sq else 2 * dx - dx @ dx
+    err = rel_err(hbsm.to_dense(y).double(), want)
+    print(f"[graft] sp2_step 1024^2 b=128 ({'X^2' if sq else '2X - X^2'}): "
+          f"{int(st.n_block_pairs)} pairs, {int(st.nnz_blocks)} blocks kept, "
+          f"vs f64 rel err {err:.3e}")
+    if err > 1e-5:
+        raise AssertionError(f"graft step rel err {err:.3e} > 1e-5")
+
+
+def b3_input():
+    """bench.py's B3 input (bench_truncation_pipeline), on the card."""
+    import hierarchical_block_sparse_lib_tpu_torch as hbsm
+    from hierarchical_block_sparse_lib_tpu_torch.utils.generators import (
+        banded_block_matrix,
+    )
+
+    n, b = 4096, 128
+    A = banded_block_matrix(n, 256, b)
+    A = hbsm.add(A, hbsm.transpose(A), alpha=0.5, beta=0.5)
+    A = hbsm.scale(A, 1.0 / float(np.sqrt(float(hbsm.frob_squared(A)))))
+    return hbsm.add(A, hbsm.eye(n, b), beta=0.5, cap=A.cap + n // b)
+
+
+def counts():
+    from hierarchical_block_sparse_lib_tpu_torch.kernels import pallas_gemm_rows as rows
+    from hierarchical_block_sparse_lib_tpu_torch.kernels import pallas_norms as pn
+
+    return {
+        "rows_spgemm": rows.rows_spgemm.launches,
+        "norms_and_keep": pn.norms_and_keep.launches,
+        "block_frob_squared": pn.block_frob_squared.launches,
+    }
+
+
+def reset_counts():
+    from hierarchical_block_sparse_lib_tpu_torch.kernels import pallas_gemm_rows as rows
+    from hierarchical_block_sparse_lib_tpu_torch.kernels import pallas_norms as pn
+
+    rows.rows_spgemm.launches = 0
+    pn.norms_and_keep.launches = 0
+    pn.block_frob_squared.launches = 0
+
+
+def b3_path():
+    """Phase 7: the B3 purification path at its configured size."""
+    import torch
+
+    import hierarchical_block_sparse_lib_tpu_torch as hbsm
+
+    n, steps, tau = 4096, 5, 1e-6
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    A = b3_input()
+    prof = hbsm.profile_purify(A, steps, tau, target_trace=n / 2)
+    got = {k: getattr(prof, k) for k in B3_PROFILE}
+    print(f"[B3] input {int(A.nnz)} blocks at cap {A.cap}; profile {got}")
+    if got != B3_PROFILE:
+        raise AssertionError(f"B3 profile differs from the JAX package's {B3_PROFILE}")
+    kw = dict(target_trace=n / 2, **prof.kwargs())
+    c0 = counts()
+    xu, su = hbsm.purify_scan(A, steps, tau, **kw)
+    c1 = counts()
+    plans = hbsm.plan_purify(A, steps, tau, prof, target_trace=n / 2)
+    c2 = counts()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        xp, sp = hbsm.purify_scan(A, steps, tau, plans=plans, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    c3 = counts()
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    launches = counts()
+    print(f"[B3] path (input, profile, scan, plan, planned scan) {path_s:.2f} s "
+          f"(first calls); launches {launches}")
+    for name, before, after in (("unplanned", c0, c1), ("planned", c2, c3)):
+        per = {k: after[k] - before[k] for k in ("rows_spgemm", "norms_and_keep")}
+        if per != {"rows_spgemm": steps, "norms_and_keep": steps}:
+            raise AssertionError(f"{name} scan launches {per}, expected {steps} each")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a kernel of the B3 path never launched: {launches}")
+    for name, st in (("unplanned", su), ("planned", sp)):
+        bad = {f: bool(getattr(st, f).any()) for f in (
+            "pair_overflow", "out_overflow", "repack_overflow", "plan_mismatch")}
+        if any(bad.values()):
+            raise AssertionError(f"B3 {name} scan flags {bad}")
+    if not (torch.equal(xp.ids, xu.ids) and torch.equal(xp.data, xu.data)):
+        raise AssertionError("B3 planned and unplanned scans are not bitwise equal")
+    print(f"[B3] planned == unplanned bitwise; planned scan ran with no host sync; "
+          f"pairs/step {su.n_block_pairs.tolist()}, kept {su.nnz_blocks.tolist()}")
+    a64 = A.with_data(A.data.double())
+    x64, s64 = hbsm.purify_scan(a64, steps, tau, backend="xla", **kw)
+    if not torch.equal(x64.ids, xu.ids):
+        raise AssertionError("B3 f32 and f64 iterates keep different blocks")
+    err = rel_err(xu.data.double(), x64.data)
+    print(f"[B3] iterate vs the port's float64 path: ids equal, rel err {err:.3e}")
+    if err > 1e-5:
+        raise AssertionError(f"B3 rel err {err:.3e} > 1e-5")
+    return A, prof, plans, launches
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Route the B3 path's kernel calls to their plain versions (timing
+    only: the plain path of the same scan)."""
+    from hierarchical_block_sparse_lib_tpu_torch.kernels import pallas_gemm_rows as rows
+    from hierarchical_block_sparse_lib_tpu_torch.kernels import pallas_norms as pn
+
+    saved = (rows.rows_spgemm, pn.norms_and_keep, pn.block_frob_squared)
+    rows.rows_spgemm = rows.rows_spgemm_reference
+    pn.norms_and_keep = pn.norms_and_keep_reference
+    pn.block_frob_squared = pn.block_frob_squared_reference
+    try:
+        yield
+    finally:
+        rows.rows_spgemm, pn.norms_and_keep, pn.block_frob_squared = saved
+
+
+def alternate(kernel_fn, plain_fn):
+    """Median CUDA-event times in turns plain, kernel, kernel, plain:
+    (kernel ms, plain ms, the four medians)."""
+    p1, _ = cuda_time_ms(plain_fn)
+    k1, _ = cuda_time_ms(kernel_fn)
+    k2, _ = cuda_time_ms(kernel_fn)
+    p2, _ = cuda_time_ms(plain_fn)
+    return statistics.median([k1, k2]), statistics.median([p1, p2]), (k1, k2, p1, p2)
+
+
+def b3_kernels_and_times(A, prof, plans, card):
+    """Phase 8: kernels vs plain at B3's step-2 shapes, and times."""
+    import torch
+
+    import hierarchical_block_sparse_lib_tpu_torch as hbsm
+    from hierarchical_block_sparse_lib_tpu_torch.kernels import pallas_gemm_rows as rows
+    from hierarchical_block_sparse_lib_tpu_torch.kernels import pallas_norms as pn
+
+    n, steps, tau = 4096, 5, 1e-6
+    kw = dict(target_trace=n / 2, **prof.kwargs())
+    x2, _ = hbsm.purify_scan(A, 2, tau, **kw)  # the step-2 input
+    p2 = plans.step(2)
+    rc = prof.row_caps
+    rargs = (x2.ids, x2.data, x2.ids, x2.data, p2.out_ids, x2.nb_rows,
+             x2.nb_rows, x2.nb_cols, prof.out_cap, rc[0], rc[1])
+    got = rows.rows_spgemm(*rargs)
+    want = rows.rows_spgemm_reference(*rargs)
+    pairs2 = int(p2.total)
+    rows_err = float((got - want).abs().max())
+    rel = rel_err(got, want)
+    print(f"[B3] rows_spgemm at step 2 ({pairs2} pairs, out_cap {prof.out_cap}): "
+          f"kernel vs plain max abs err {rows_err:.3e}, rel {rel:.3e}")
+    if rel > ROWS_TOL:
+        raise AssertionError(f"B3 rows_spgemm rel err {rel:.3e}")
+    ydata = got  # the step's product blocks: norms_and_keep's input shape
+    n2, keep = pn.norms_and_keep(ydata, tau)
+    n2p, keepp = pn.norms_and_keep_reference(ydata, tau)
+    f2 = pn.block_frob_squared(ydata)
+    nk_err = float((n2 - n2p).abs().max())
+    fb_err = float((f2 - n2p).abs().max())
+    if not torch.allclose(n2, n2p, rtol=1e-5, atol=0) or not torch.allclose(f2, n2p, rtol=1e-5, atol=0):
+        raise AssertionError("B3 norm kernels differ from the plain version")
+    if not torch.equal(keep, keepp):
+        raise AssertionError("B3 norms_and_keep keep mask differs from the plain version")
+    print(f"[B3] norms at out_cap {prof.out_cap}: max abs err norms_and_keep "
+          f"{nk_err:.3e}, block_frob_squared {fb_err:.3e}; keep equal")
+
+    t = {}
+    t["scan"] = alternate(
+        lambda: hbsm.purify_scan(A, steps, tau, **kw), _plain(lambda: hbsm.purify_scan(A, steps, tau, **kw)))
+    t["planned"] = alternate(
+        lambda: hbsm.purify_scan(A, steps, tau, plans=plans, **kw),
+        _plain(lambda: hbsm.purify_scan(A, steps, tau, plans=plans, **kw)))
+    t["rows"] = alternate(lambda: rows.rows_spgemm(*rargs), lambda: rows.rows_spgemm_reference(*rargs))
+    t["norms_and_keep"] = alternate(lambda: pn.norms_and_keep(ydata, tau),
+                                    lambda: pn.norms_and_keep_reference(ydata, tau))
+    t["block_frob_squared"] = alternate(lambda: pn.block_frob_squared(ydata),
+                                        lambda: pn.block_frob_squared_reference(ydata))
+    lib_ms, _ = cuda_time_ms(lambda: torch.einsum("cij,cij->c", ydata, ydata))
+    print(f"[time] {card}: B3, CUDA events, median of 7 after 2 warm-up calls, "
+          f"in turns plain, kernel, kernel, plain (kernel pair / plain pair)")
+    for name, (k, p, four) in t.items():
+        print(f"[time]   {name:20s} kernel {four[0]:.4f} / {four[1]:.4f} ms   "
+              f"plain {four[2]:.4f} / {four[3]:.4f} ms")
+    print(f"[time]   einsum('cij,cij->c') at out_cap {prof.out_cap}: {lib_ms:.4f} ms")
+    nbytes_norms = ydata.numel() * ydata.element_size()
+    cap = ydata.shape[0]
+    rows_bound = bound(2 * 128**3 * pairs2,
+                       x2.data.numel() * 4 + prof.out_cap * 128 * 128 * 4)
+    entries = {
+        "rows_spgemm": dict(max_abs_err=rows_err, ms=t["rows"][0], plain_ms=t["rows"][1],
+                            bound=rows_bound, library_ms=None),
+        "norms_and_keep": dict(
+            max_abs_err=nk_err, ms=t["norms_and_keep"][0], plain_ms=t["norms_and_keep"][1],
+            bound=bound(2 * ydata.numel(), nbytes_norms + cap * 5), library_ms=lib_ms),
+        "block_frob_squared": dict(
+            max_abs_err=fb_err, ms=t["block_frob_squared"][0],
+            plain_ms=t["block_frob_squared"][1],
+            bound=bound(2 * ydata.numel(), nbytes_norms + cap * 4), library_ms=lib_ms),
+    }
+    scans = {k: t[k] for k in ("scan", "planned")}
+    for name in ("scan", "planned"):
+        k, p, _ = t[name]
+        print(f"[B3] purify_scan ({name}) per 5-step iteration: kernels {k:.3f} ms, "
+              f"plain {p:.3f} ms")
+    return entries, scans
+
+
+def _plain(fn):
+    def run():
+        with plain_kernels():
+            fn()
+    return run
+
+
+def acceptance_purification():
+    """Phase 9: scripts/acceptance.py's B3 check on the port."""
+    import torch
+
+    import hierarchical_block_sparse_lib_tpu_torch as hbsm
+    from hierarchical_block_sparse_lib_tpu_torch.utils import generators as gen
+
+    n, b, nocc = 1024, 128, 256
+    r, c, v = gen.banded_coo(n, 40, seed=3)
+    H = hbsm.from_coo(r, c, v, n, block_size=b)
+    dH = hbsm.to_dense(H).double()
+    dH = (dH + dH.T) / 2
+    H = hbsm.from_dense(dH.float(), block_size=b)
+    w, V = torch.linalg.eigh(dH)
+    lo, hi = float(w[0]), float(w[-1])
+    X = hbsm.add(hbsm.eye(n, b, cap=H.cap + n // b), H,
+                 alpha=hi / (hi - lo), beta=-1.0 / (hi - lo))
+    nb = n // b
+    Xf, st = hbsm.purify_scan(X, 40, tau=1e-7, pair_cap=nb**3, out_cap=nb * nb,
+                              target_trace=nocc, row_caps=(nb, nb))
+    if bool((st.pair_overflow | st.out_overflow | st.repack_overflow).any()):
+        raise AssertionError("1024^2 purification overflowed")
+    proj = V[:, :nocc] @ V[:, :nocc].T
+    rel = float(torch.linalg.norm(hbsm.to_dense(Xf).double() - proj) / torch.linalg.norm(proj))
+    print(f"[accept] purification 1024^2, 40 steps, tau=1e-7 -> spectral projector: "
+          f"Frobenius rel err {rel:.3e}")
+    if rel > 1e-4:
+        raise AssertionError(f"purification rel err {rel:.3e} > 1e-4")
+
+
+def profile_planned_b3(A, prof, plans, card):
+    """Phase 10: torch.profiler over 10 planned B3 scans: device time by
+    kernel and the device's idle share of the window."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import hierarchical_block_sparse_lib_tpu_torch as hbsm
+
+    n, steps, tau, reps = 4096, 5, 1e-6, 10
+    kw = dict(target_trace=n / 2, plans=plans, **prof.kwargs())
+
+    def run():
+        for _ in range(reps):
+            hbsm.purify_scan(A, steps, tau, **kw)
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        run()
+        stop.record()
+        stop.synchronize()
+    window_us = start.elapsed_time(stop) * 1e3
+    kernels = {}
+    for e in p.key_averages():
+        dev = getattr(e, "self_device_time_total", None)
+        if dev is None:
+            dev = getattr(e, "self_cuda_time_total", 0.0)
+        if dev > 0 and e.cpu_time_total == 0:
+            kernels[e.key] = (dev, e.count)
+    busy = sum(t for t, _ in kernels.values())
+    print(f"[profile] {card}: {reps} planned B3 scans, window {window_us / reps:.1f} us "
+          f"per scan (CUDA events)")
+    if busy == 0:
+        print("[profile] the profiler recorded no device time: not measured")
+        return
+    print(f"[profile]   device busy {busy / reps:.1f} us per scan, idle "
+          f"{100 * (1 - busy / window_us):.1f}% of the window")
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])
+    for name, (t, cnt) in top[:10]:
+        print(f"[profile]   {100 * t / busy:5.1f}%  {t / reps:8.1f} us/scan  "
+              f"{cnt // reps:4d} launches/scan  {name[:90]}")
+    print(f"[profile]   {len(kernels)} distinct device functions, "
+          f"{sum(c for _, c in kernels.values()) // reps} launches per scan")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60,
+    )
+    print(f"[profile]   after: {smi.stdout.strip()}")
+
+
 def main() -> int:
     import torch
 
@@ -170,23 +643,25 @@ def main() -> int:
         random_block_matrix,
     )
 
-    # Phase 2: build.
+    # Phase 2: build, one nvcc per source, all started together.
     t0 = time.perf_counter()
-    _build.load("gemm_fine")
-    print(f"[build] gemm_fine ready in {time.perf_counter() - t0:.1f} s")
-    for name, (secs, log) in _build.build_logs.items():
+    _build.load_all(["gemm_fine", "gemm_rows", "norms"])
+    print(f"[build] kernels ready in {time.perf_counter() - t0:.1f} s")
+    for name, (secs, log) in sorted(_build.build_logs.items()):
         print(f"[build] nvcc {name}: {secs:.1f} s")
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  {line.strip()}")
 
-    # Phase 3: kernel vs plain version at small shapes.
+    # Phase 3: kernels vs plain versions at small shapes.
     print("[small] kernel vs plain version")
     small_shapes()
+    small_rows()
+    small_norms()
 
-    # Phase 4: the main path at the configured B2 size.
+    # Phase 4: the B2 path at its configured size.
     n, b, density, seed = 16384, 32, 0.05, 2
-    A = random_block_matrix(n, b, density, seed=seed, device="cuda")
+    A = random_block_matrix(n, b, density, seed=seed)
     torch.cuda.synchronize()
     fine_spgemm.launches = 0
     t0 = time.perf_counter()
@@ -197,12 +672,12 @@ def main() -> int:
     D = hbsm.fine_unpack(hbsm.fine_scale(hbsm.fine_add(C, Af, beta=0.25), 2.0))
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
-    launches = fine_spgemm.launches
+    fine_launches = fine_spgemm.launches
     print(f"[B2] {n}^2 b={b} density={density} seed={seed}: {int(A.nnz)} blocks, "
           f"pairs={pc} out_blocks={oc} row caps=({mbr}, {mcr}); "
-          f"chain {main_s:.3f} s (first call), kernel launches={launches}")
-    if launches < 1:
-        raise AssertionError("the main path did not launch the fine kernel")
+          f"chain {main_s:.3f} s (first call), kernel launches={fine_launches}")
+    if fine_launches < 1:
+        raise AssertionError("the B2 path did not launch the fine kernel")
     flags = {k: bool(getattr(info, k)) for k in (
         "pair_overflow", "out_overflow", "row_overflow", "plan_mismatch")}
     if any(flags.values()):
@@ -222,55 +697,66 @@ def main() -> int:
     if rel > 1e-5:
         raise AssertionError(f"B2 chain rel err {rel:.3e} > 1e-5")
 
-    # Phase 5: kernel vs plain version at the main path's shapes;
-    # determinism of a repeated planned multiply.
+    # Phase 5: the fine kernel vs plain at B2's shapes; determinism; times.
     args = (Af.ids, Af.data, Af.ids, Af.data, plan.out_ids, Af.nb_rows,
             Af.nb_rows, Af.nb_cols, oc, mbr, mcr)
     kw = dict(block_size=b, out_layout="flat", alpha=0.5, tables=plan.tables)
     plain = fine_spgemm_reference(*args, **kw)
-    max_abs_err = check_close("B2 kernel vs plain", C.data, plain, TOL["highest"])
+    fine_err = check_close("B2 kernel vs plain", C.data, plain, TOL["highest"])
     del plain
-    print(f"[B2] kernel vs plain version: max abs err {max_abs_err:.3e} "
+    print(f"[B2] kernel vs plain version: max abs err {fine_err:.3e} "
           f"(rtol = atol = {TOL['highest']})")
     C2, _ = hbsm.fine_matmul(Af, Af, pc, oc, (mbr, mcr), alpha=0.5, plan=plan)
     if not torch.equal(C.data, C2.data):
         raise AssertionError("repeated planned fine_matmul is not bitwise equal")
-    del C2
+    del C2, C
     print("[B2] repeated planned fine_matmul: bitwise equal")
-
-    # Phase 6: times (CUDA events, median of 7 after 2 warm-up calls),
-    # alternating plain, kernel, kernel, plain.
-    def kernel_run():
-        hbsm.fine_matmul(Af, Af, pc, oc, (mbr, mcr), alpha=0.5, plan=plan)
-
-    def plain_run():
-        fine_spgemm_reference(*args, **kw)
-
-    plain_a, _ = cuda_time_ms(plain_run)
-    kern_a, kern_all = cuda_time_ms(kernel_run)
-    kern_b, _ = cuda_time_ms(kernel_run)
-    plain_b, plain_all = cuda_time_ms(plain_run)
-    kern_ms = statistics.median([kern_a, kern_b])
-    plain_ms = statistics.median([plain_a, plain_b])
+    fine_ms, fine_plain_ms, four = alternate(
+        lambda: hbsm.fine_matmul(Af, Af, pc, oc, (mbr, mcr), alpha=0.5, plan=plan),
+        lambda: fine_spgemm_reference(*args, **kw),
+    )
     flops = 2 * b**3 * pc
-    print(f"[time] {card}: planned fine_matmul at B2 (highest), median of 7")
-    print(f"[time]   kernel {kern_a:.3f} / {kern_b:.3f} ms  "
-          f"-> {flops / kern_ms / 1e6:.1f} GFLOP/s  (runs {kern_all})")
-    print(f"[time]   plain  {plain_a:.3f} / {plain_b:.3f} ms  "
-          f"-> {flops / plain_ms / 1e6:.1f} GFLOP/s  (runs {plain_all})")
-    print(f"[time]   peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"[time] {card}: planned fine_matmul at B2 (highest), median of 7, "
+          f"in turns plain, kernel, kernel, plain")
+    print(f"[time]   kernel {four[0]:.3f} / {four[1]:.3f} ms  "
+          f"-> {flops / fine_ms / 1e6:.1f} GFLOP/s")
+    print(f"[time]   plain  {four[2]:.3f} / {four[3]:.3f} ms  "
+          f"-> {flops / fine_plain_ms / 1e6:.1f} GFLOP/s")
+    fine_bound = bound(flops, 2 * Af.data.numel() * 4 + oc * b * b * 4)
+    del Af, plan, A
+    torch.cuda.empty_cache()
 
-    print(json.dumps({"kernels": [{
-        "name": "fine_spgemm",
-        "route": "cuda",
-        "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES,
-        "launches": launches,
-        "max_abs_err": max_abs_err,
-        "ms": kern_ms,
-        "plain_ms": plain_ms,
-    }]}))
+    # Phase 6: the graft entry's step.
+    graft_step()
+
+    # Phases 7 and 8: the B3 path, then its kernels alone and the times.
+    A3, prof, plans, b3_launches = b3_path()
+    entries, _ = b3_kernels_and_times(A3, prof, plans, card)
+
+    # Phase 9: purification against the spectral projector.
+    acceptance_purification()
+
+    # Phase 10: profile of the planned B3 scan.
+    profile_planned_b3(A3, prof, plans, card)
+    print(f"[mem] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    entries["fine_spgemm"] = dict(
+        max_abs_err=fine_err, ms=fine_ms, plain_ms=fine_plain_ms,
+        bound=fine_bound, library_ms=None,
+    )
+    launches = dict(b3_launches, fine_spgemm=fine_launches)
+    rows_out = []
+    for name, (source, replaces) in KERNELS.items():
+        e = entries[name]
+        rows_out.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": e["max_abs_err"], "ms": e["ms"],
+            "plain_ms": e["plain_ms"], "bound_ms": e["bound"][0],
+            "bound_by": e["bound"][1], "library_ms": e["library_ms"],
+        })
+    print(card)
+    print(json.dumps({"kernels": rows_out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

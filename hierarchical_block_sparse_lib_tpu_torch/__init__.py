@@ -9,9 +9,13 @@ operations are plain functions on tensors, on the tensors' device.  This
 package imports torch and numpy, never jax.
 
 Ported so far: the fine-leaf chain (``fine_pack`` -> ``make_fine_plan``
--> ``fine_matmul`` -> ``fine_add``/``fine_scale`` -> ``fine_unpack``) and
-what it stands on, with the Hopper kernel of
-``kernels/pallas_gemm_fine.py::fine_spgemm``.
+-> ``fine_matmul`` -> ``fine_add``/``fine_scale`` -> ``fine_unpack``) on
+the Hopper kernel of ``kernels/pallas_gemm_fine.py::fine_spgemm``; and
+SP2 purification at 128-wide leaves (``profile_purify`` ->
+``plan_purify`` -> ``purify_scan``, over ``spgemm`` and ``truncate``) on
+the kernels of ``kernels/pallas_gemm_rows.py::rows_spgemm`` and
+``kernels/pallas_norms.py``.  Constructors build on the CUDA card unless
+given another ``device``.
 """
 
 from hierarchical_block_sparse_lib_tpu_torch.core.block_matrix import (
@@ -20,6 +24,7 @@ from hierarchical_block_sparse_lib_tpu_torch.core.block_matrix import (
 )
 from hierarchical_block_sparse_lib_tpu_torch.core.assembly import (
     empty,
+    eye,
     from_coo,
     from_dense,
     to_dense,
@@ -28,6 +33,7 @@ from hierarchical_block_sparse_lib_tpu_torch.ops.basic import (
     add,
     add_with_info,
     scale,
+    transpose,
 )
 from hierarchical_block_sparse_lib_tpu_torch.ops.norms import (
     block_frob_squared,
@@ -37,7 +43,15 @@ from hierarchical_block_sparse_lib_tpu_torch.ops.norms import (
 from hierarchical_block_sparse_lib_tpu_torch.ops.truncate import truncate
 from hierarchical_block_sparse_lib_tpu_torch.ops.spgemm import (
     MultiplyInfo,
+    SymbolicPlan,
+    make_plan,
+    spgemm,
     spgemm_symbolic,
+)
+from hierarchical_block_sparse_lib_tpu_torch.ops.repack import (
+    coarsen,
+    plan_coarsen,
+    repack,
 )
 from hierarchical_block_sparse_lib_tpu_torch.ops.fine import (
     FineFlat,
@@ -53,6 +67,17 @@ from hierarchical_block_sparse_lib_tpu_torch.ops.fine import (
     fine_unpack,
     make_fine_plan,
 )
+from hierarchical_block_sparse_lib_tpu_torch.models.purification import (
+    CapacityProfile,
+    PurificationStats,
+    PurifyEngine,
+    PurifyPlans,
+    plan_purify,
+    profile_purify,
+    purify,
+    purify_scan,
+    sp2_step,
+)
 
 __all__ = [
     "BlockMatrix",
@@ -61,15 +86,23 @@ __all__ = [
     "from_dense",
     "to_dense",
     "empty",
+    "eye",
     "add",
     "add_with_info",
     "scale",
+    "transpose",
     "frob_squared",
     "block_frob_squared",
     "trace",
     "truncate",
+    "spgemm",
     "spgemm_symbolic",
+    "make_plan",
+    "SymbolicPlan",
     "MultiplyInfo",
+    "repack",
+    "coarsen",
+    "plan_coarsen",
     "FineFlat",
     "FinePlan",
     "make_fine_plan",
@@ -82,6 +115,15 @@ __all__ = [
     "fine_trace",
     "fine_sp2_step",
     "fine_frob_squared",
+    "CapacityProfile",
+    "PurificationStats",
+    "PurifyEngine",
+    "PurifyPlans",
+    "plan_purify",
+    "profile_purify",
+    "purify",
+    "purify_scan",
+    "sp2_step",
 ]
 
 __version__ = "0.1.0"

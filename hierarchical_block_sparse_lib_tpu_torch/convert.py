@@ -1,5 +1,6 @@
 """numpy <-> port conversion: how a matrix crosses between the JAX
-package (``np.asarray`` of its fields) and this one.
+package (``np.asarray`` of its fields) and this one.  The `*_from_numpy`
+constructors build on the card unless `device` names another.
 
 ``block_matrix_from_numpy(**to_numpy(m), device=...)`` round-trips, and
 so does ``fine_flat_from_numpy`` for a FineFlat.
@@ -10,11 +11,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from hierarchical_block_sparse_lib_tpu_torch.core.block_matrix import BlockMatrix
+from hierarchical_block_sparse_lib_tpu_torch.core.block_matrix import (
+    BlockMatrix,
+    resolve_device,
+)
 from hierarchical_block_sparse_lib_tpu_torch.ops.fine import FineFlat
 
 
 def _fields(ids, data, nnz, device):
+    device = resolve_device(device)
     return dict(
         ids=torch.from_numpy(np.array(ids, np.int32)).to(device),
         data=torch.from_numpy(np.array(data)).to(device),
@@ -23,7 +28,7 @@ def _fields(ids, data, nnz, device):
 
 
 def block_matrix_from_numpy(
-    ids, data, nnz, n_rows: int, n_cols: int, block_size: int, device="cpu"
+    ids, data, nnz, n_rows: int, n_cols: int, block_size: int, device=None
 ) -> BlockMatrix:
     return BlockMatrix(
         **_fields(ids, data, nnz, device),
@@ -32,7 +37,7 @@ def block_matrix_from_numpy(
 
 
 def fine_flat_from_numpy(
-    ids, data, nnz, n_rows: int, n_cols: int, block_size: int, device="cpu"
+    ids, data, nnz, n_rows: int, n_cols: int, block_size: int, device=None
 ) -> FineFlat:
     return FineFlat(
         **_fields(ids, data, nnz, device),

@@ -13,6 +13,7 @@ from hierarchical_block_sparse_lib_tpu_torch.core.block_matrix import (
     check_geometry,
     compact_sorted,
     first_of_run,
+    resolve_device,
 )
 
 
@@ -22,10 +23,12 @@ def empty(
     block_size: int,
     cap: int,
     dtype=torch.float32,
-    device="cpu",
+    device=None,
 ) -> BlockMatrix:
-    """All-zero matrix with storage capacity for `cap` blocks."""
+    """All-zero matrix with storage capacity for `cap` blocks, on the card
+    unless `device` names another."""
     check_geometry(n_rows, n_cols, block_size)
+    device = resolve_device(device)
     return BlockMatrix(
         ids=torch.full((cap,), SENTINEL, dtype=torch.int32, device=device),
         data=torch.zeros((cap, block_size, block_size), dtype=dtype, device=device),
@@ -33,6 +36,31 @@ def empty(
         n_rows=n_rows,
         n_cols=n_cols,
         block_size=block_size,
+    )
+
+
+def eye(
+    n: int, block_size: int, dtype=torch.float32, cap: int | None = None,
+    device=None,
+) -> BlockMatrix:
+    """Identity matrix: one dense diagonal block per block-row, on the card
+    unless `device` names another."""
+    check_geometry(n, n, block_size)
+    device = resolve_device(device)
+    b = block_size
+    nb = -(-n // b)
+    cap = cap if cap is not None else nb
+    ids = torch.full((cap,), SENTINEL, dtype=torch.int32, device=device)
+    ids[:nb] = torch.arange(nb, dtype=torch.int32, device=device) * (nb + 1)
+    # Trailing diagonal entries past n (a padded edge block) stay zero.
+    rows = torch.arange(nb * b, device=device).reshape(nb, b)
+    data = torch.zeros((cap, b, b), dtype=dtype, device=device)
+    diag = torch.diagonal(data[:nb], dim1=-2, dim2=-1)
+    diag.copy_((rows < n).to(dtype))
+    return BlockMatrix(
+        ids=ids, data=data,
+        nnz=torch.full((), nb, dtype=torch.int32, device=device),
+        n_rows=n, n_cols=n, block_size=b,
     )
 
 
@@ -44,12 +72,14 @@ def from_coo(
     n_cols: int | None = None,
     block_size: int = 128,
     cap: int | None = None,
-    device="cpu",
+    device=None,
 ) -> BlockMatrix:
-    """Build from COO triplets (duplicate entries sum).  `cap` defaults to
-    the exact number of touched blocks."""
+    """Build from COO triplets (duplicate entries sum), on the card unless
+    `device` names another.  `cap` defaults to the exact number of
+    touched blocks."""
     n_cols = n_rows if n_cols is None else n_cols
     check_geometry(n_rows, n_cols, block_size)
+    device = resolve_device(device)
     b = block_size
     nbc = -(-n_cols // b)
     rows = torch.as_tensor(np.asarray(rows), device=device).to(torch.int64)

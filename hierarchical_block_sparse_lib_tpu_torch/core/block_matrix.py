@@ -70,6 +70,20 @@ class BlockMatrix:
         )
 
 
+def resolve_device(device) -> torch.device:
+    """The device a constructor builds on: the CUDA card unless the caller
+    names another.  Without a card the default raises; it never falls
+    back to the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: constructors build on the card by default; "
+            "pass device='cpu' to build on the CPU"
+        )
+    return torch.device("cuda")
+
+
 def check_geometry(n_rows: int, n_cols: int, block_size: int) -> None:
     nbr = -(-n_rows // block_size)
     nbc = -(-n_cols // block_size)

@@ -10,6 +10,7 @@ from disk.  A failed build raises.  Nothing here runs at import time.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -72,3 +73,11 @@ def load(name: str) -> ctypes.CDLL:
         os.replace(tmp, so)
         build_logs[name] = (time.perf_counter() - t0, proc.stdout + proc.stderr)
     return ctypes.CDLL(so)
+
+
+def load_all(names) -> dict[str, ctypes.CDLL]:
+    """`load` each of `names` at once: one nvcc per source, all started
+    together.  Returns name -> library; the first failed build raises."""
+    with concurrent.futures.ThreadPoolExecutor(max(len(names), 1)) as pool:
+        futures = {name: pool.submit(load, name) for name in names}
+        return {name: f.result() for name, f in futures.items()}

@@ -225,6 +225,44 @@ def _split_bf16(x: torch.Tensor):
     return hi, (x - hi).to(torch.bfloat16).to(torch.float32)
 
 
+def expand_pairs(a_ids, a_col, b_row_start, b_row_max: int):
+    """The plain versions' pair list: A entry e (row i, column k) meets the
+    first min(count, bucket(b_row_max)) blocks of B's row k, as the
+    kernels see them.  Returns (a_idx, b_idx), int64; sizing it reads the
+    device."""
+    dev = a_ids.device
+    k = a_col.long()
+    lo = b_row_start[k].long()
+    cnt = torch.clamp(b_row_start[k + 1].long() - lo, max=_bucket(max(b_row_max, 1)))
+    cnt = torch.where(a_ids != SENTINEL, cnt, 0)
+    a_idx = torch.repeat_interleave(torch.arange(a_ids.shape[0], device=dev), cnt)
+    start = torch.cumsum(cnt, 0) - cnt
+    b_idx = lo[a_idx] + torch.arange(a_idx.shape[0], device=dev) - start[a_idx]
+    return a_idx, b_idx
+
+
+def pair_slots(out_ids, c_id, out_cap: int):
+    """Slot of each pair's output id in the sorted `out_ids`; `out_cap`
+    (a trash slot) where the id has none."""
+    slot = torch.searchsorted(out_ids, c_id).clamp_(max=out_cap - 1)
+    return torch.where(out_ids[slot] == c_id, slot, out_cap)
+
+
+def tier_bmm(x: torch.Tensor, y: torch.Tensor, precision: str) -> torch.Tensor:
+    """Batched f32 products x @ y at a precision tier: "high" as the bf16x3
+    split, "default" of bf16-rounded operands (exact in f32), "highest"
+    in full f32; TF32 off throughout."""
+    with _ieee_fp32_matmul(x.device):
+        if precision == "high":
+            xh, xl = _split_bf16(x)
+            yh, yl = _split_bf16(y)
+            return torch.bmm(xh, yh) + (torch.bmm(xh, yl) + torch.bmm(xl, yh))
+        if precision == "default":
+            x = x.to(torch.bfloat16).to(torch.float32)
+            y = y.to(torch.bfloat16).to(torch.float32)
+        return torch.bmm(x, y)
+
+
 def fine_spgemm_reference(
     a_ids, a_data, b_ids, b_data, out_ids, nbr: int, nbrB: int, nbc: int,
     out_cap: int, b_row_max: int, c_row_max: int, precision: str = "highest",
@@ -235,8 +273,7 @@ def fine_spgemm_reference(
     device: expand the block pairs the kernel's tables give, gather them,
     one batched `torch.bmm` at the requested tier, then an `index_add_`
     into ``out_cap + 1`` slots whose last (products with no output slot)
-    is dropped.  Products of bf16-rounded values are exact in f32, so the
-    "high" and "default" tiers are f32 products of rounded operands."""
+    is dropped."""
     del c_row_max
     if tables is None:
         tables = build_tables(a_ids, b_ids, out_ids, nbr, nbrB, nbc)
@@ -245,28 +282,10 @@ def fine_spgemm_reference(
     dev = a_data.device
     if out_cap == 0:
         return _output(torch.zeros((0, b, b), device=dev), b, out_layout)
-    # Pair expansion: A entry e (row i, column k) meets the first
-    # min(count, b_row_max) blocks of B's row k.
-    k = a_col.long()
-    lo = b_row_start[k].long()
-    cnt = torch.clamp(b_row_start[k + 1].long() - lo, max=_bucket(max(b_row_max, 1)))
-    cnt = torch.where(a_ids != SENTINEL, cnt, 0)
-    a_idx = torch.repeat_interleave(torch.arange(a_ids.shape[0], device=dev), cnt)
-    start = torch.cumsum(cnt, 0) - cnt
-    b_idx = lo[a_idx] + torch.arange(a_idx.shape[0], device=dev) - start[a_idx]
+    a_idx, b_idx = expand_pairs(a_ids, a_col, b_row_start, b_row_max)
     c_id = ((a_ids[a_idx].long() // nbrB) * nbc + b_col[b_idx].long()).to(torch.int32)
-    slot = torch.searchsorted(out_ids, c_id).clamp_(max=out_cap - 1)
-    slot = torch.where(out_ids[slot] == c_id, slot, out_cap)
-
-    x = bt[b_idx].to(torch.float32)
-    y = at[a_idx].to(torch.float32)
-    with _ieee_fp32_matmul(dev):
-        if precision == "high":
-            xh, xl = _split_bf16(x)
-            yh, yl = _split_bf16(y)
-            prod = torch.bmm(xh, yh) + (torch.bmm(xh, yl) + torch.bmm(xl, yh))
-        else:
-            prod = torch.bmm(x, y)
+    slot = pair_slots(out_ids, c_id, out_cap)
+    prod = tier_bmm(bt[b_idx].to(torch.float32), at[a_idx].to(torch.float32), precision)
     ct = torch.zeros((out_cap + 1, b, b), dtype=torch.float32, device=dev)
     ct.index_add_(0, slot, prod)
     return _output(ct[:out_cap], b, out_layout)

@@ -22,7 +22,6 @@ from hierarchical_block_sparse_lib_tpu_torch.core.block_matrix import (
     first_of_run,
 )
 from hierarchical_block_sparse_lib_tpu_torch.kernels.pallas_gemm_fine import (
-    _bucket,
     build_tables,
     fine_spgemm,
 )
@@ -32,6 +31,7 @@ from hierarchical_block_sparse_lib_tpu_torch.ops.spgemm import (
     MultiplyInfo,
     spgemm_symbolic,
 )
+from hierarchical_block_sparse_lib_tpu_torch.ops.spgemm import row_overflow as _row_overflow
 
 
 @dataclass(frozen=True)
@@ -171,12 +171,6 @@ class FinePlan:
     row_overflow: torch.Tensor  # bool[] — row caps checked at plan time
 
 
-def _row_max(ids: torch.Tensor, nb_rows: int, nb_cols: int) -> torch.Tensor:
-    """Largest number of stored blocks in one block-row (0-dim int64)."""
-    rowv = torch.where(ids != SENTINEL, ids // nb_cols, nb_rows).long()
-    return torch.bincount(rowv, minlength=nb_rows + 1)[:-1].max()
-
-
 def _structure(sa: BlockMatrix, sb: BlockMatrix, pair_cap, out_cap, row_caps):
     """Symbolic phase -> (out_ids, n_unique, total, raw_total, row_overflow)."""
     _, _, c_id, total, raw_total = spgemm_symbolic(sa, sb, pair_cap)
@@ -187,12 +181,9 @@ def _structure(sa: BlockMatrix, sb: BlockMatrix, pair_cap, out_cap, row_caps):
     out_ids = torch.full((out_cap + 1,), SENTINEL, dtype=torch.int32, device=c_id.device)
     out_ids[seg] = c_id
     out_ids = out_ids[:out_cap]
-    max_b_row = _row_max(sb.ids, sb.nb_rows, sb.nb_cols)
-    max_c_row = _row_max(out_ids, sa.nb_rows, sb.nb_cols)
-    row_overflow = (max_b_row > _bucket(max(row_caps[0], 1))) | (
-        max_c_row > _bucket(max(row_caps[1], 1))
+    return out_ids, n_unique, total, raw_total, _row_overflow(
+        sb, out_ids, sa.nb_rows, row_caps
     )
-    return out_ids, n_unique, total, raw_total, row_overflow
 
 
 def make_fine_plan(

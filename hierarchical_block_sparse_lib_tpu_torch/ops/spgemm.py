@@ -1,16 +1,26 @@
-"""SpGEMM symbolic phase, operation counters and host planners (port of
-``ops/spgemm.py``).
+"""Hierarchical block-sparse multiply (port of ``ops/spgemm.py``): the
+symbolic phase, reusable plans, the numeric backends, counters and host
+planners.
 
 The symbolic phase replaces the reference's quadtree recursion: for each
 stored A block (i,k), find B's row-k run, and enumerate every
 (a_idx, b_idx) pair with a prefix sum plus a searchsorted expansion.
 Only stored-by-stored pairs are enumerated, so ``n_block_pairs`` is the
-reference's block-multiply counter.  The numeric phase at fine leaves is
-``kernels/pallas_gemm_fine.py`` under ``ops/fine.py``.
+reference's block-multiply counter.  The numeric phase runs on the
+row-panel kernel (``"rows"``, 128-wide leaves), the fine kernel
+(``"fine"``, leaves 16/32/64) or gather + `bmm` + `index_add_`
+(``"xla"``, the reference's non-Pallas path, which float64 takes).
+
+Not ported yet, and raising `NotImplementedError`: the norm filter and
+the upper-triangle enumeration (``filter_by_norm``/``syrk_upper``),
+leaf-occupancy counting (``a_leaf_occ``), the aligned accumulate
+(``accum_aligned``), the symmetric-mirror plan, and the ``"groups"`` and
+``"pallas"`` backends.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 
 import numpy as np
@@ -19,7 +29,13 @@ import torch
 from hierarchical_block_sparse_lib_tpu_torch.core.block_matrix import (
     SENTINEL,
     BlockMatrix,
+    first_of_run,
 )
+from hierarchical_block_sparse_lib_tpu_torch.kernels import (
+    pallas_gemm_fine,
+    pallas_gemm_rows,
+)
+from hierarchical_block_sparse_lib_tpu_torch.ops import basic
 
 
 @dataclass(frozen=True)
@@ -109,3 +125,378 @@ def plan_spgemm(a: BlockMatrix, b: BlockMatrix):
         np.asarray(a.ids.cpu()), np.asarray(b.ids.cpu()),
         a.nb_cols, b.nb_rows, b.nb_cols,
     )
+
+
+@dataclass(frozen=True)
+class SymbolicPlan:
+    """Device-resident symbolic plan (the output of `spgemm_symbolic`),
+    reusable across `spgemm` calls while both operands keep exactly the
+    same id structure: only the numeric phase runs.  Build with
+    `make_plan`.
+
+    Built with ``accum_ids=``/``out_cap=``, it also holds the union
+    structure of the product support with the accumulator support
+    (`out_ids`, `seg`, `pos_acc`, `n_unique`), so a fixed-support
+    C = alpha*A@B + beta*D costs no structural work at all.  The
+    symmetric-mirror fields are the reference's; the port never sets
+    them yet."""
+
+    a_idx: torch.Tensor  # int32[pair_cap]
+    b_idx: torch.Tensor  # int32[pair_cap]
+    c_id: torch.Tensor  # int32[pair_cap], sorted, SENTINEL padded
+    total: torch.Tensor  # int32[] surviving pairs
+    raw_total: torch.Tensor  # int32[] unfiltered enumeration size
+    # Operand id structure the plan was built for, compared on use
+    # (MultiplyInfo.plan_mismatch).
+    a_ids: torch.Tensor | None = None  # int32[capA]
+    b_ids: torch.Tensor | None = None  # int32[capB]
+    out_ids: torch.Tensor | None = None  # int32[out_cap] union ids
+    seg: torch.Tensor | None = None  # int32[pair_cap] pair -> union slot
+    pos_acc: torch.Tensor | None = None  # int32[acc_cap] accum -> union slot
+    n_unique: torch.Tensor | None = None  # int32[] distinct union blocks
+    acc_ids: torch.Tensor | None = None  # int32[acc_cap] planned accum ids
+    mirror_src: torch.Tensor | None = None
+    total_syrk: torch.Tensor | None = None
+    mirror_ok: torch.Tensor | None = None
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+
+
+def make_plan(
+    a: BlockMatrix,
+    b: BlockMatrix,
+    pair_cap: int,
+    tau=0.0,
+    filter_by_norm: bool = False,
+    syrk_upper: bool = False,
+    accum_ids: torch.Tensor | None = None,
+    out_cap: int | None = None,
+    sym_mirror: bool = False,
+) -> SymbolicPlan:
+    """Run the symbolic phase once for reuse via ``spgemm(..., plan=...)``;
+    valid while both operands' id arrays are unchanged (data may change
+    freely), self-checked on use.  With `accum_ids` (the accumulator's
+    sorted ids) and `out_cap`, the beta-accumulate union is planned too:
+    the matching ``spgemm(..., plan=..., accum=...)`` call uses the same
+    `out_cap` and an accumulator with exactly these ids."""
+    del tau
+    if filter_by_norm or syrk_upper:
+        raise _not_ported("the norm filter and syrk enumeration", "Queue 1 #6")
+    if sym_mirror:
+        raise _not_ported("the symmetric-mirror plan", "Queue 1 #7")
+    sym = spgemm_symbolic(a, b, pair_cap)
+    rec = dict(a_ids=a.ids, b_ids=b.ids)
+    if accum_ids is None:
+        return SymbolicPlan(*sym, **rec)
+    if out_cap is None:
+        raise ValueError("make_plan(accum_ids=...) requires out_cap")
+    out_ids, seg, pos_acc, n_unique = basic.union_merge(sym[2], accum_ids, out_cap)
+    return SymbolicPlan(
+        *sym, **rec, out_ids=out_ids, seg=seg, pos_acc=pos_acc,
+        n_unique=n_unique, acc_ids=accum_ids,
+    )
+
+
+def alpha_is_one_static(alpha) -> bool:
+    return isinstance(alpha, (int, float)) and float(alpha) == 1.0
+
+
+def resolve_backend(
+    block_size,
+    dtype,
+    nbc_b: int,
+    pair_cap: int,
+    row_caps=None,
+    group_caps=None,
+    filter_by_norm: bool = False,
+    syrk_upper: bool = False,
+) -> str:
+    """The backend ``spgemm(backend="auto")`` runs, as a host-side decision
+    callers can log; spgemm itself calls this.  The same rule holds on
+    the CPU and on the card (the kernel modules take their plain versions
+    for CPU tensors):
+
+    - float64 data: ``"xla"`` (the kernels accumulate in f32);
+    - `group_caps` given: ``"groups"`` (not ported yet: raises);
+    - `row_caps` given and the row-panel kernel takes the leaf: ``"rows"``;
+    - `row_caps` given and the fine kernel takes the leaf: ``"fine"``;
+    - other b % 128 == 0: ``"pallas"``, the stream kernel (not ported
+      yet: raises);
+    - anything else: ``"xla"``.
+
+    The reference's `pair_cap >= 1024` gate and its SMEM/VMEM gates were
+    measured on or set by a TPU and are not carried over."""
+    del nbc_b, pair_cap
+    if dtype == torch.float64:
+        return "xla"
+    if group_caps is not None and not filter_by_norm and not syrk_upper:
+        return "groups"
+    if row_caps is not None and pallas_gemm_rows.supported(block_size, dtype):
+        return "rows"
+    if (
+        row_caps is not None
+        and not filter_by_norm
+        and not syrk_upper
+        and pallas_gemm_fine.supported(block_size, dtype)
+    ):
+        return "fine"
+    if block_size % 128 == 0:
+        return "pallas"
+    return "xla"
+
+
+# Bound the gathered operands of the "xla" path: 2 * chunk * b^2 elements
+# per operand gather and product.
+_XLA_PAIR_CHUNK = 8192
+
+
+def _xla_numeric_accumulate(
+    a_data, b_data, a_idx, b_idx, seg, out_shape, acc_dtype, precision
+):
+    """Chunked gather + `bmm` + `index_add_`: pair p adds
+    A[a_idx[p]] @ B[b_idx[p]] into slot seg[p]; slots >= out_shape[0] go
+    to a trash row that is dropped.  f32 products run with TF32 off at
+    "highest" and "high"."""
+    dev = a_data.device
+    n_out = out_shape[0]
+    out = torch.zeros((n_out + 1,) + tuple(out_shape[1:]), dtype=acc_dtype, device=dev)
+    seg = seg.long().clamp(max=n_out)
+    a_idx, b_idx = a_idx.long(), b_idx.long()
+    ctx = (
+        contextlib.nullcontext() if precision == "default"
+        else pallas_gemm_fine._ieee_fp32_matmul(dev)
+    )
+    with ctx:
+        for s0 in range(0, a_idx.shape[0], _XLA_PAIR_CHUNK):
+            sl = slice(s0, s0 + _XLA_PAIR_CHUNK)
+            prod = torch.bmm(
+                a_data[a_idx[sl]].to(acc_dtype), b_data[b_idx[sl]].to(acc_dtype)
+            )
+            out.index_add_(0, seg[sl], prod)
+    return out[:n_out]
+
+
+def _max_row_count(ids: torch.Tensor, nb_rows: int, nb_cols: int) -> torch.Tensor:
+    """Largest number of stored blocks in one block-row of a sorted id
+    list (0-dim int32, no host sync)."""
+    rowv = torch.where(ids != SENTINEL, ids // nb_cols, nb_rows).to(torch.int32)
+    start = torch.searchsorted(
+        rowv, torch.arange(nb_rows + 1, dtype=torch.int32, device=ids.device),
+        out_int32=True,
+    )
+    return (start[1:] - start[:-1]).max()
+
+
+def row_overflow(b: BlockMatrix, out_ids: torch.Tensor, nb_rows_a: int, row_caps) -> torch.Tensor:
+    """True when B's rows or the output's rows hold more blocks than the
+    kernels' bucketed row caps: the kernels clamp B rows to the cap, so an
+    undersized cap would drop products silently (0-dim bool, no host
+    sync)."""
+    bucket = pallas_gemm_fine._bucket
+    return (
+        _max_row_count(b.ids, b.nb_rows, b.nb_cols) > bucket(max(row_caps[0], 1))
+    ) | (
+        _max_row_count(out_ids, nb_rows_a, b.nb_cols) > bucket(max(row_caps[1], 1))
+    )
+
+
+def spgemm(
+    a: BlockMatrix,
+    b: BlockMatrix,
+    pair_cap: int,
+    out_cap: int,
+    alpha=1.0,
+    transpose_a: bool = False,
+    transpose_b: bool = False,
+    backend: str = "auto",
+    precision: str = "highest",
+    tau=0.0,
+    filter_by_norm: bool = False,
+    gemm_cap: int | None = None,
+    row_caps: tuple[int, int] | None = None,
+    group_caps: tuple[int, int, int, int] | None = None,
+    syrk_upper: bool = False,
+    a_leaf_occ: torch.Tensor | None = None,
+    b_leaf_occ: torch.Tensor | None = None,
+    accum: BlockMatrix | None = None,
+    beta=1.0,
+    plan: SymbolicPlan | None = None,
+    accum_aligned: bool = False,
+):
+    """C = alpha * op(A) @ op(B) [+ beta * accum]; returns (C, MultiplyInfo).
+
+    `pair_cap` bounds the enumerated block pairs and `out_cap` the
+    distinct output blocks (static capacities); overflow is reported in
+    MultiplyInfo, never silent.  `plan` (from `make_plan`) skips the
+    symbolic phase for fixed-structure iteration and is self-checked
+    against the operands (`plan_mismatch`).  `accum` fuses the
+    beta-accumulate: C's structure is the union of the product support
+    and accum's, and beta*accum is added by one gather-add.  `alpha` and
+    `beta` may be numbers or 0-dim tensors (no host sync either way).
+
+    backend: "rows" (row-panel kernel, 128-wide leaves; needs
+    `row_caps`), "fine" (fine kernel, leaves 16/32/64; needs `row_caps`),
+    "xla" (gather + `bmm`), or "auto" (`resolve_backend`).  precision:
+    "highest" (f32-faithful), "high" (bf16x3 split), "default" (one bf16
+    pass on the kernels); ignored for non-f32 data.
+    """
+    if filter_by_norm or syrk_upper:
+        raise _not_ported("the norm filter and syrk enumeration", "Queue 1 #6")
+    if a_leaf_occ is not None or b_leaf_occ is not None:
+        raise _not_ported("leaf-occupancy counting", "Queue 1 #2")
+    if accum_aligned:
+        raise _not_ported("the aligned accumulate", "Queue 1 #2")
+    del tau
+    if transpose_a:
+        a = basic.transpose(a)
+    if transpose_b:
+        b = basic.transpose(b)
+    if a.n_cols != b.n_rows or a.block_size != b.block_size:
+        raise ValueError(
+            f"inner dims/block mismatch: {a.n_cols}x{a.block_size} vs "
+            f"{b.n_rows}x{b.block_size}"
+        )
+    dev = a.device
+    plan_mismatch = torch.zeros((), dtype=torch.bool, device=dev)
+
+    def check(got, want):
+        # A stale plan gathers wrong pairs: compare the id structure it
+        # was built for (a capacity change counts as drift).
+        nonlocal plan_mismatch
+        if got.shape != want.shape:
+            plan_mismatch = torch.ones_like(plan_mismatch)
+        else:
+            plan_mismatch = plan_mismatch | torch.any(got != want)
+
+    if plan is None:
+        a_idx, b_idx, c_id, total, raw_total = spgemm_symbolic(a, b, pair_cap)
+    else:
+        if plan.a_idx.shape[0] != pair_cap:
+            raise ValueError(
+                f"plan built for pair_cap={plan.a_idx.shape[0]}, got {pair_cap}"
+            )
+        a_idx, b_idx, c_id = plan.a_idx, plan.b_idx, plan.c_id
+        total, raw_total = plan.total, plan.raw_total
+        if plan.a_ids is not None:
+            check(a.ids, plan.a_ids)
+            check(b.ids, plan.b_ids)
+    gemm_cap = pair_cap if gemm_cap is None else min(gemm_cap, pair_cap)
+    if gemm_cap < pair_cap:
+        # Survivors sort before SENTINEL padding.
+        a_idx, b_idx, c_id = a_idx[:gemm_cap], b_idx[:gemm_cap], c_id[:gemm_cap]
+    n_leaf = torch.full((), -1, dtype=torch.int32, device=dev)
+
+    valid_p = c_id != SENTINEL
+    pos_acc = None
+    if accum is None:
+        first = first_of_run(c_id)
+        seg = torch.where(valid_p, torch.cumsum(first, 0) - 1, out_cap)
+        n_unique = (first & valid_p).sum().to(torch.int32)
+        out_ids_pre = torch.full((out_cap + 1,), SENTINEL, dtype=torch.int32, device=dev)
+        out_ids_pre[seg.clamp(max=out_cap)] = c_id
+        out_ids_pre = out_ids_pre[:out_cap]
+    else:
+        if (accum.n_rows, accum.n_cols) != (a.n_rows, b.n_cols):
+            raise ValueError("accum shape mismatch")
+        if accum.block_size != a.block_size:
+            raise ValueError("accum block_size mismatch")
+        if plan is not None and plan.out_ids is not None:
+            if plan.out_ids.shape[0] != out_cap:
+                raise ValueError(
+                    f"plan union built for out_cap={plan.out_ids.shape[0]}, "
+                    f"got {out_cap}"
+                )
+            out_ids_pre = plan.out_ids
+            seg = plan.seg[:gemm_cap]
+            pos_acc, n_unique = plan.pos_acc, plan.n_unique
+            check(accum.ids, plan.acc_ids)
+        else:
+            acc_ids = torch.where(accum.valid_mask(), accum.ids, SENTINEL).to(torch.int32)
+            out_ids_pre, seg, pos_acc, n_unique = basic.union_merge(
+                c_id, acc_ids, out_cap
+            )
+    if backend == "auto":
+        backend = resolve_backend(
+            a.block_size, a.dtype, b.nb_cols, pair_cap,
+            row_caps=row_caps, group_caps=group_caps,
+        )
+    acc_dtype = torch.promote_types(a.dtype, torch.float32)
+    if backend in ("rows", "fine"):
+        if row_caps is None:
+            raise ValueError(f"backend={backend!r} requires row_caps (plan_spgemm_ex)")
+        kernel = (
+            pallas_gemm_rows.rows_spgemm if backend == "rows"
+            else pallas_gemm_fine.fine_spgemm
+        )
+        out_data = kernel(
+            a.ids, a.data, b.ids, b.data, out_ids_pre,
+            a.nb_rows, b.nb_rows, b.nb_cols, out_cap,
+            row_caps[0], row_caps[1], precision=precision,
+        )
+        rows_over = row_overflow(b, out_ids_pre, a.nb_rows, row_caps)
+    elif backend == "xla":
+        out_data = _xla_numeric_accumulate(
+            a.data, b.data, a_idx, b_idx, seg,
+            (out_cap, a.block_size, b.block_size), acc_dtype, precision,
+        )
+        rows_over = torch.zeros((), dtype=torch.bool, device=dev)
+    elif backend == "pallas":
+        raise _not_ported('the "pallas" stream backend', "Queue 2 #4")
+    elif backend == "groups":
+        raise _not_ported('the "groups" backend', "Queue 2 #5")
+    else:
+        raise ValueError(f"unknown backend {backend!r}")
+    exact_fill = backend in ("rows", "fine")
+    if not (exact_fill and alpha_is_one_static(alpha) and a.dtype == out_data.dtype):
+        # Keep the all-zero padding invariant and apply alpha in one pass.
+        slot_valid = out_ids_pre != SENTINEL
+        if accum is not None and not exact_fill:
+            # Union slots that no pair reached stay zero here (beta*accum
+            # lands below).
+            hit = torch.zeros((out_cap + 1,), dtype=torch.bool, device=dev)
+            hit[seg.long().clamp(max=out_cap)] = True
+            slot_valid = slot_valid & hit[:out_cap]
+        out_data = torch.where(
+            slot_valid[:, None, None], out_data * basic._scalar(alpha, out_data), 0
+        ).to(a.dtype)
+    if accum is not None:
+        # Fused beta-accumulate as a gather-add: invert pos_acc with a small
+        # int scatter, gather accum's block per union slot (absent -> 0)
+        # and add.  pos_acc maps each valid accum slot to a unique union
+        # slot only while accum's ids are unique: check it, loudly.
+        plan_mismatch = plan_mismatch | torch.any(
+            (accum.ids[1:] == accum.ids[:-1]) & accum.valid_mask()[1:]
+        )
+        acc_cap = accum.cap
+        acc_src = torch.full((out_cap + 1,), acc_cap, dtype=torch.int64, device=dev)
+        acc_src[pos_acc.long().clamp(max=out_cap)] = torch.arange(acc_cap, device=dev)
+        acc_src = acc_src[:out_cap]
+        acc_blocks = torch.where(
+            (acc_src < acc_cap)[:, None, None],
+            accum.data[acc_src.clamp(max=acc_cap - 1)], 0,
+        )
+        out_data = out_data.to(acc_dtype)
+        out_data = (out_data + basic._scalar(beta, out_data) * acc_blocks.to(acc_dtype)).to(a.dtype)
+    c = BlockMatrix(
+        ids=out_ids_pre, data=out_data, nnz=torch.clamp(n_unique, max=out_cap),
+        n_rows=a.n_rows, n_cols=b.n_cols, block_size=a.block_size,
+    )
+    info = MultiplyInfo(
+        n_block_pairs=total,
+        n_out_blocks=n_unique,
+        pair_overflow=(raw_total > pair_cap) | (total > gemm_cap),
+        out_overflow=n_unique > out_cap,
+        row_overflow=rows_over,
+        plan_mismatch=plan_mismatch,
+        n_leaf_multiplies=n_leaf,
+    )
+    return c, info
+
+
+def pair_bound(a: BlockMatrix, b: BlockMatrix) -> int:
+    """Cheap static upper bound on the pair count, cap(A)*cap(B) clamped
+    by the dense bound.  Prefer `plan_spgemm` for tight sizing."""
+    dense = a.nb_rows * a.nb_cols * b.nb_cols
+    return int(min(a.cap * b.cap, dense))

@@ -1,17 +1,21 @@
 """Norm-based block truncation (port of ``ops/truncate.py``, leaf mode):
 per-block norm -> mask -> stable compaction.  Capacity is unchanged
-unless `cap` is given; freed slots become SENTINEL/zero padding."""
+unless `cap` is given; freed slots become SENTINEL/zero padding.  At
+b % 128 == 0 with f32 or bf16 data the norm and the compare are one
+kernel pass (``kernels/pallas_norms.py::norms_and_keep``)."""
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from hierarchical_block_sparse_lib_tpu_torch.core.block_matrix import (
     SENTINEL,
     BlockMatrix,
 )
+from hierarchical_block_sparse_lib_tpu_torch.kernels import pallas_norms
 from hierarchical_block_sparse_lib_tpu_torch.ops.norms import block_frob_squared
 
 
@@ -31,9 +35,20 @@ def truncate(
     """
     if subtree_level is not None:
         raise NotImplementedError("subtree truncation is not ported yet")
-    tdt = torch.promote_types(a.dtype, torch.float32)
-    tau2 = torch.square(torch.as_tensor(tau, dtype=tdt, device=a.device))
-    keep = (block_frob_squared(a) > tau2) & a.valid_mask()
+    if pallas_norms.supported(a.block_size, a.dtype):
+        _, keep = pallas_norms.norms_and_keep(a.data, tau)
+    else:
+        # Threshold at the norm's accumulation type; a number is squared
+        # on the host, so no scalar is copied to the device.
+        tdt = torch.promote_types(a.dtype, torch.float32)
+        if isinstance(tau, torch.Tensor):
+            tau2 = torch.square(tau.to(tdt))
+        elif tdt == torch.float32:
+            tau2 = float(np.float32(tau) * np.float32(tau))
+        else:
+            tau2 = float(tau) ** 2
+        keep = block_frob_squared(a) > tau2
+    keep = keep & a.valid_mask()
     # Stable compaction without a sort (ids are sorted): survivors' slots
     # are cumsum(keep)-1.  Invert the slot map with a small int scatter
     # (slot `ocap` is the trash row), then gather the blocks once; source

@@ -8,7 +8,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from hierarchical_block_sparse_lib_tpu_torch.core.block_matrix import BlockMatrix
+from hierarchical_block_sparse_lib_tpu_torch.core.block_matrix import (
+    BlockMatrix,
+    resolve_device,
+)
 
 
 def banded_coo(n: int, bandwidth: int, seed: int = 0, dtype=np.float32):
@@ -70,11 +73,13 @@ def block_ids_banded(n: int, bandwidth: int, block_size: int):
 
 def random_block_matrix(
     n: int, b: int, density: float, seed: int = 0, dtype=np.float32,
-    device="cpu",
+    device=None,
 ) -> BlockMatrix:
-    """Random block-sparse n x n matrix, every stored block dense N(0,1):
-    the configured B2 input is ``random_block_matrix(16384, 32, 0.05,
-    seed=2)`` (``bench.py::random_block_matrix``, same RNG calls)."""
+    """Random block-sparse n x n matrix, every stored block dense N(0,1),
+    on the card unless `device` names another: the configured B2 input
+    is ``random_block_matrix(16384, 32, 0.05, seed=2)``
+    (``bench.py::random_block_matrix``, same RNG calls)."""
+    device = resolve_device(device)
     rng = np.random.default_rng(seed)
     nb = n // b
     n_blocks = max(1, int(round(density * nb * nb)))
@@ -88,3 +93,22 @@ def random_block_matrix(
         n_cols=n,
         block_size=b,
     )
+
+
+def banded_block_matrix(n: int, bw: int, b: int, seed: int = 0, device=None) -> BlockMatrix:
+    """Dense band of half-width `bw`, assembled at leaf 16 and coarsened to
+    leaf `b` at the tight capacity (``bench.py::banded_block_matrix``, the
+    B3 input at ``(4096, 256, 128)``), on the card unless `device` names
+    another."""
+    from hierarchical_block_sparse_lib_tpu_torch.core.assembly import from_coo
+    from hierarchical_block_sparse_lib_tpu_torch.ops.repack import (
+        coarsen,
+        plan_coarsen,
+    )
+
+    r, c, v = banded_coo(n, bw, seed=seed)
+    base = 16 if b % 16 == 0 and b > 16 else b
+    m = from_coo(r, c, v, n, block_size=base, device=device)
+    if base != b:
+        m = coarsen(m, b // base, cap=plan_coarsen(m, b // base))
+    return m

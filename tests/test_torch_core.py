@@ -66,7 +66,7 @@ def test_from_coo_matches_jax():
     rows = rng.integers(0, n, 300).astype(np.int32)
     cols = rng.integers(0, n, 300).astype(np.int32)
     vals = rng.standard_normal(300).astype(np.float32)
-    got = tx.from_coo(rows, cols, vals, n, block_size=b)
+    got = tx.from_coo(rows, cols, vals, n, block_size=b, device="cpu")
     want = jx.from_coo(rows, cols, vals, n, block_size=b)
     assert_same_matrix(got, want, rtol=1e-6, atol=1e-6)
     oracle = np.zeros((n, n), np.float64)
@@ -122,7 +122,7 @@ def test_random_block_matrix_bit_identical_to_bench():
     import bench
 
     want = bench.random_block_matrix(512, 32, 0.05, seed=2)
-    got = random_block_matrix(512, 32, 0.05, seed=2)
+    got = random_block_matrix(512, 32, 0.05, seed=2, device="cpu")
     np.testing.assert_array_equal(got.ids.numpy(), np.asarray(want.ids))
     np.testing.assert_array_equal(got.data.numpy(), np.asarray(want.data))
     assert int(got.nnz) == int(want.nnz)
@@ -131,7 +131,7 @@ def test_random_block_matrix_bit_identical_to_bench():
 
 def test_convert_round_trip():
     jm, tm = matrix_pair(6, 5, 16, 0.4, 7, pad=3)
-    back = block_matrix_from_numpy(**to_numpy(tm))
+    back = block_matrix_from_numpy(**to_numpy(tm), device="cpu")
     assert_same_matrix(back, jm, rtol=0, atol=0)
     assert to_numpy(jm).keys() == to_numpy(tm).keys()
 

@@ -44,15 +44,15 @@ def matrix_pair(nbr, nbc, b, density, seed, empty_rows=(), pad=0):
         ids=jnp.asarray(ids), data=jnp.asarray(data),
         nnz=jnp.asarray(nnz, jnp.int32), **geo,
     )
-    return jm, block_matrix_from_numpy(ids, data, nnz, **geo)
+    return jm, block_matrix_from_numpy(ids, data, nnz, **geo, device="cpu")
 
 
 def to_port(m):
     """A JAX BlockMatrix or FineFlat as the port's counterpart."""
     fields = to_numpy(m)
     if isinstance(m, jx.FineFlat):
-        return fine_flat_from_numpy(**fields)
-    return block_matrix_from_numpy(**fields)
+        return fine_flat_from_numpy(**fields, device="cpu")
+    return block_matrix_from_numpy(**fields, device="cpu")
 
 
 def np_(x):
@@ -124,3 +124,83 @@ def assert_same_info(port_info, jax_info):
         want = np_(getattr(jax_info, field))
         assert got.dtype.kind == want.dtype.kind, field
         assert got == want, (field, got, want)
+
+
+# Row-panel kernel module vs JAX, relative to max|C|: f32 sums taken in
+# another order.  At "default" JAX's interpret mode does not round the
+# operands to bf16 (the TPU's matrix unit does; the port does), so JAX is
+# handed the bf16-rounded operands: both then sum exact f32 products.
+ROWS_TOL = 1e-5
+
+
+def check_rows_spgemm(b, precision, option=None, nb=(5, 7, 4)):
+    """The port's rows_spgemm (on the CPU: its plain version) against the
+    JAX kernel in interpret mode, on rectangular operands with empty rows.
+    The output ids are the product support united with two ids of A's
+    empty row 1 (slots no product reaches) plus three tail slots.
+    `option` is None, "filter", "triu" or "acc"."""
+    import jax.numpy as jnp
+
+    from hierarchical_block_sparse_lib_tpu.kernels.pallas_gemm_rows import (
+        rows_spgemm as jax_rows_spgemm,
+    )
+    from hierarchical_block_sparse_lib_tpu.ops.basic import union_merge
+    from hierarchical_block_sparse_lib_tpu.ops.spgemm import plan_spgemm_ex
+    from hierarchical_block_sparse_lib_tpu_torch.kernels.pallas_gemm_rows import (
+        rows_spgemm,
+    )
+
+    nbr, nbk, nbc = nb
+    ja, ta = matrix_pair(nbr, nbk, b, 0.4, 40 + b, empty_rows=(1,), pad=2)
+    jb, tb = matrix_pair(nbk, nbc, b, 0.4, 41 + b, empty_rows=(2,))
+    pc, oc, mbr, mcr = plan_spgemm_ex(ja, jb)
+    sym = jx.spgemm_symbolic(ja, jb, pc)
+    extra = jnp.asarray([nbc, nbc + 2], jnp.int32)  # (1, 0) and (1, 2)
+    out_cap = oc + 2 + 3
+    out_ids = union_merge(sym[2], extra, out_cap)[0]
+    kw = {}
+    if option == "filter":
+        an2 = np.sum(np.asarray(ja.data, np.float32) ** 2, axis=(1, 2))
+        bn2 = np.sum(np.asarray(jb.data, np.float32) ** 2, axis=(1, 2))
+        prods = np.sort(an2[np.asarray(sym[0])[:pc]] * bn2[np.asarray(sym[1])[:pc]])
+        m = len(prods) // 2
+        assert prods[m] > prods[m - 1] * (1 + 1e-3)  # no pair near the cut
+        kw = dict(a_norms2=an2, b_norms2=bn2, tau2=np.float32(0.5 * (prods[m - 1] + prods[m])))
+    elif option == "triu":
+        kw = dict(triu=True)
+    elif option == "acc":
+        rng = np.random.default_rng(b)
+        kw = dict(acc_data=rng.standard_normal((out_cap, b, b)).astype(np.float32))
+    geo = (ja.nb_rows, jb.nb_rows, jb.nb_cols, out_cap, mbr, mcr)
+    ja_data, jb_data = ja.data, jb.data
+    if precision == "default":
+        ja_data, jb_data = (
+            x.astype(jnp.bfloat16).astype(jnp.float32) for x in (ja.data, jb.data)
+        )
+    want = np.asarray(jax_rows_spgemm(
+        ja.ids, ja_data, jb.ids, jb_data, out_ids, *geo, precision=precision,
+        **{k: jnp.asarray(v) if isinstance(v, np.ndarray) else v for k, v in kw.items()},
+    ))
+    tkw = {k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v for k, v in kw.items()}
+    if "tau2" in tkw:
+        tkw["tau2"] = float(kw["tau2"])
+    got = rows_spgemm(
+        ta.ids, ta.data, tb.ids, tb.data, torch.from_numpy(np.array(out_ids)),
+        *geo, precision=precision, **tkw,
+    ).numpy()
+    assert got.shape == want.shape == (out_cap, b, b)
+    scale = np.abs(want).max()
+    err = np.abs(got - want).max() / scale
+    assert err <= ROWS_TOL, (precision, err)
+    ids = np.asarray(out_ids)
+    start = kw.get("acc_data", np.zeros_like(got))
+    union = np.isin(ids, np.asarray(extra))
+    np.testing.assert_array_equal(got[union], start[union])  # no product
+    assert not np.any(got[ids == SENTINEL])  # zero tail
+    if option == "filter":  # the skip really dropped pairs
+        full = rows_spgemm(
+            ta.ids, ta.data, tb.ids, tb.data, torch.from_numpy(np.array(out_ids)),
+            *geo, precision=precision,
+        ).numpy()
+        assert np.abs(full - got).max() > 1e-3 * scale
+    return got, want
