@@ -14,7 +14,13 @@ final line):
    alpha != 1 operands with empty rows, the canonical layout, the zero
    tail); the row-panel kernel at b=128 x the three tiers, bf16 data, the
    SpAMM skip, triu and the aligned accumulator, with union slots that no
-   product reaches and a tail; both norm kernels, f32 and bf16;
+   product reaches and a tail; both norm kernels, f32 and bf16; the
+   pair-stream kernel at b in {128, 256} x the three tiers, bf16, a
+   carry-in, padding pairs and an empty pair list; the v1 call chunked at
+   64 pairs against one chunk, bitwise; the row-group kernel at b in
+   {128, 256} x the three tiers and bf16, with a partial last group, a
+   rectangular product and union slots; spgemm on the group kernel with a
+   fused accumulate, and an undersized slab cap that must be flagged;
 4. the B2 path at its configured size: random 16384^2, 5% block
    density, leaf 32, seed 2, through plan_spgemm_ex -> fine_pack ->
    make_fine_plan -> fine_matmul(plan=) -> fine_add -> fine_scale ->
@@ -37,7 +43,22 @@ final line):
 9. purification at 1024^2 (tau=1e-7, 40 steps) against the spectral
    projector from an f64 eigendecomposition;
 10. a torch.profiler trace of 10 planned B3 scans: device time by
-    kernel, launches, and the device's idle share.
+    kernel, launches, and the device's idle share;
+11. B3's input through `purify` (no row caps: the pair-stream kernel),
+    5 steps, held against the rows-backend scan of phase 7: equal stats
+    and ids, the iterate within 1e-5;
+12. the configured B1 (bench.py:700-721: banded 4096^2, bandwidth 64,
+    leaf 16, coarsened x8 with leaf tracking): plan_groups against the
+    JAX package's plan, matmul and spgemm on the row-group kernel,
+    unplanned and planned, against the host plans' counters (leaf
+    multiplies included) and an f64 dense oracle; the group kernel vs
+    plain; times of the same planned product through "groups", "rows"
+    and "pallas", and a torch.profiler breakdown of each;
+13. B2-tile128 (bench.py:477: random 16384^2 at leaf 128, 5%, seed 2)
+    without row caps, on the pair-stream kernel: counters, a repeated
+    call bitwise equal, the product against the port's float64 path; the
+    v1 call on the same pairs; both against their plain versions, with
+    times and a torch.profiler breakdown of the planned product.
 
 Prints the card line and one JSON line of per-kernel results, then, as
 the last line, ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -63,7 +84,12 @@ KERNELS = {
     "rows_spgemm": (_CSRC + "gemm_rows.cu", _TPU + "pallas_gemm_rows.py:549"),
     "block_frob_squared": (_CSRC + "norms.cu", _TPU + "pallas_norms.py:67"),
     "norms_and_keep": (_CSRC + "norms.cu", _TPU + "pallas_norms.py:92"),
+    "gather_gemm_accumulate_stream": (
+        _CSRC + "gemm_stream.cu", _TPU + "pallas_gemm_stream.py:189"),
+    "groups_spgemm": (_CSRC + "gemm_groups.cu", _TPU + "pallas_gemm_groups.py:449"),
+    "gather_gemm_accumulate": (_CSRC + "gemm_stream.cu", _TPU + "pallas_gemm.py:161"),
 }
+B3_KERNELS = ("rows_spgemm", "norms_and_keep", "block_frob_squared")
 TOL = {"highest": 1e-5, "high": 1e-5, "default": 1e-4}
 # Row-panel kernel vs plain version, relative to max|C|: both take the
 # same (rounded) operands at every tier and sum f32 products in another
@@ -78,6 +104,12 @@ B3_PROFILE = dict(
     per_step_kept=(268, 374, 374, 374, 424),
     pair_cap=4498, out_cap=644, cap=424, row_caps=(13, 25),
 )
+# B1 at leaf 128 as the JAX package plans it: plan_groups' fields, and
+# (block pairs, output blocks, leaf-16 multiplies = plan_spgemm(A16, A16)).
+B1_PLAN = dict(caps=(16, 47, 50, 77), slab_blocks=100, pairs=278)
+B1_COUNTS = (278, 154, 20436)
+# B2-tile128's (block pairs, output blocks), plan_spgemm in the JAX package.
+B2T_COUNTS = (5156, 4415)
 # H100 SXM data sheet at 700 W: FP32 outside the tensor cores, HBM3.
 FP32_FLOPS = 67e12
 HBM_BYTES = 3.35e12
@@ -98,25 +130,52 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def random_pattern(nbr, nbc, b, density, seed, empty_rows=(), device=None):
-    """Random block-sparse matrix with dense N(0,1) blocks; block rows in
-    `empty_rows` hold nothing."""
+def block_matrix(ids, nbr, nbc, b, rng):
+    """Block matrix on the card with the given sorted ids on an nbr x nbc
+    block grid and dense N(0,1) blocks drawn from `rng`."""
     import torch
 
     from hierarchical_block_sparse_lib_tpu_torch import BlockMatrix
 
-    device = device or DEVICE
+    ids = np.asarray(ids, dtype=np.int32)
+    data = rng.standard_normal((ids.size, b, b)).astype(np.float32)
+    return BlockMatrix(
+        ids=torch.from_numpy(ids).to(DEVICE),
+        data=torch.from_numpy(data).to(DEVICE),
+        nnz=torch.tensor(ids.size, dtype=torch.int32, device=DEVICE),
+        n_rows=nbr * b, n_cols=nbc * b, block_size=b,
+    )
+
+
+def random_pattern(nbr, nbc, b, density, seed, empty_rows=()):
+    """Random block-sparse matrix with dense N(0,1) blocks; block rows in
+    `empty_rows` hold nothing."""
     rng = np.random.default_rng(seed)
     n_blocks = max(1, int(round(density * nbr * nbc)))
     ids = np.sort(rng.choice(nbr * nbc, n_blocks, replace=False))
-    ids = ids[~np.isin(ids // nbc, empty_rows)].astype(np.int32)
-    data = rng.standard_normal((ids.size, b, b)).astype(np.float32)
-    return BlockMatrix(
-        ids=torch.from_numpy(ids).to(device),
-        data=torch.from_numpy(data).to(device),
-        nnz=torch.tensor(ids.size, dtype=torch.int32, device=device),
-        n_rows=nbr * b, n_cols=nbc * b, block_size=b,
-    )
+    return block_matrix(ids[~np.isin(ids // nbc, empty_rows)], nbr, nbc, b, rng)
+
+
+def band_pattern(nbr, nbc, hw, b, seed):
+    """Band of half-width `hw` blocks on an nbr x nbc block grid, dense
+    N(0,1) blocks."""
+    ids = [i * nbc + j for i in range(nbr)
+           for j in range(max(0, i - hw), min(nbc, i + hw + 1))]
+    return block_matrix(ids, nbr, nbc, b, np.random.default_rng(seed))
+
+
+def pair_stream(A, B, pair_cap, out_cap):
+    """spgemm's output-sorted block pairs of A @ B padded to `pair_cap`,
+    and each pair's output slot (`out_cap` for a padding pair): the
+    stream kernel's (a_idx, b_idx, seg)."""
+    import torch
+
+    import hierarchical_block_sparse_lib_tpu_torch as hbsm
+    from hierarchical_block_sparse_lib_tpu_torch.core.block_matrix import first_of_run
+
+    a_idx, b_idx, c_id, _, _ = hbsm.spgemm_symbolic(A, B, pair_cap)
+    seg = torch.where(c_id != hbsm.SENTINEL, torch.cumsum(first_of_run(c_id), 0) - 1, out_cap)
+    return a_idx, b_idx, seg.to(torch.int32)
 
 
 def check_close(name, got, want, tol):
@@ -297,6 +356,142 @@ def small_norms():
         print(f"  norms {str(x.dtype):15s} cap=37 rel err={err:.3e}, keep equal")
 
 
+def small_stream():
+    """Phase 3: the pair-stream kernel and the v1 chunked call vs their
+    plain versions."""
+    import torch
+
+    from hierarchical_block_sparse_lib_tpu_torch.kernels import pallas_gemm
+    from hierarchical_block_sparse_lib_tpu_torch.kernels import pallas_gemm_stream as ps
+    from hierarchical_block_sparse_lib_tpu_torch.ops.spgemm import plan_spgemm
+
+    g = torch.Generator(device=DEVICE).manual_seed(5)
+    for b in (128, 256):
+        A = random_pattern(5, 4, b, 0.5, seed=b, empty_rows=(2,))
+        B = random_pattern(4, 6, b, 0.5, seed=b + 1)
+        pc, oc = plan_spgemm(A, B)
+        out_cap = oc + 2  # two slots that no pair reaches
+        a_idx, b_idx, seg = pair_stream(A, B, pc + 5, out_cap)  # five padding pairs
+        cin = torch.randn((out_cap, b, b), device=DEVICE, generator=g)
+        f32, bf16 = (A.data, B.data), (A.data.bfloat16(), B.data.bfloat16())
+        cases = [(p, f32, None) for p in ("highest", "high", "default")] + [
+            ("bf16", bf16, None), ("highest", f32, cin)]
+        for prec, (ad, bd), c in cases:
+            tier = "highest" if prec == "bf16" else prec
+            args = (ad, bd, a_idx, b_idx, seg, out_cap)
+            got = ps.gather_gemm_accumulate_stream(*args, precision=tier, cin=c)
+            want = ps.gather_gemm_accumulate_stream_reference(*args, precision=tier, cin=c)
+            torch.cuda.synchronize()
+            err = rel_err(got, want)
+            name = f"b={b} {prec}{' cin' if c is not None else ''} ({pc} pairs)"
+            if not err <= ROWS_TOL:
+                raise AssertionError(f"stream {name}: rel err {err:.3e} > {ROWS_TOL}")
+            start = c[oc:] if c is not None else torch.zeros_like(got[oc:])
+            if not torch.equal(got[oc:], start):
+                raise AssertionError(f"stream {name}: slots that no pair reaches changed")
+            print(f"  stream {name:34s} kernel-vs-plain rel err={err:.3e}")
+        none = torch.zeros(0, dtype=torch.int32, device=DEVICE)
+        empty = ps.gather_gemm_accumulate_stream(A.data, B.data, none, none, none, out_cap)
+        kept = ps.gather_gemm_accumulate_stream(A.data, B.data, none, none, none, out_cap, cin=cin)
+        torch.cuda.synchronize()
+        if torch.count_nonzero(empty) or not torch.equal(kept, cin):
+            raise AssertionError(f"stream b={b}: an empty pair list changed the slots")
+        print(f"  stream b={b} empty pair list: zeros, or the carry-in as it is")
+    # The v1 call chunked at 64 pairs against one chunk: the carry-in makes
+    # the chunked sum the same sum.
+    A = random_pattern(8, 8, 128, 0.6, seed=31)
+    pc, oc = plan_spgemm(A, A)
+    args = (A.data, A.data, *pair_stream(A, A, pc + 5, oc), oc)
+    chunked = pallas_gemm.gather_gemm_accumulate(*args, chunk=64)
+    single = pallas_gemm.gather_gemm_accumulate(*args, chunk=pc + 5)
+    want = pallas_gemm.gather_gemm_accumulate_reference(*args)
+    torch.cuda.synchronize()
+    err = rel_err(chunked, want)
+    if pc <= 128 or not torch.equal(chunked, single) or not err <= ROWS_TOL:
+        raise AssertionError(f"gather_gemm_accumulate chunked: {pc} pairs, rel err {err:.3e}")
+    print(f"  gather_gemm_accumulate: {pc} pairs in {-(-(pc + 5) // 64)} chunks of 64 "
+          f"== one chunk, bitwise; kernel-vs-plain rel err={err:.3e}")
+
+
+def exact_group_caps(A, B, out_ids, g):
+    """(g, a_grp_max, slab_max, c_grp_max): the exact per-group maxima of
+    this structure at `g` block rows per group."""
+    from hierarchical_block_sparse_lib_tpu_torch.kernels import pallas_gemm_groups as pg
+
+    t = pg.group_tables(A.ids, B.ids, out_ids, A.nb_rows, B.nb_rows, B.nb_cols, g)
+
+    def widest(start):
+        return int((start[1:] - start[:-1]).max())
+
+    return (g, widest(t.grp_a_start), int(t.slab_cnt.max()), widest(t.grp_c_start))
+
+
+def small_groups():
+    """Phase 3: the row-group kernel vs its plain version, and spgemm on it
+    with a fused accumulate and the group check."""
+    import torch
+
+    import hierarchical_block_sparse_lib_tpu_torch as hbsm
+    from hierarchical_block_sparse_lib_tpu_torch.kernels import pallas_gemm_groups as pg
+    from hierarchical_block_sparse_lib_tpu_torch.ops.spgemm import plan_spgemm
+
+    for b in (128, 256):
+        sq = band_pattern(11, 11, 1, b, seed=b)
+        cases = (
+            (sq, sq, "11x11 G=4 (last group 3 rows)"),
+            (band_pattern(7, 5, 1, b, seed=b + 1), band_pattern(5, 9, 2, b, seed=b + 2),
+             "7x5 @ 5x9 G=4"),
+        )
+        for A, B, tag in cases:
+            pc, oc = plan_spgemm(A, B)
+            # Union slots (0, last column) and (last row, 0), which no
+            # product reaches, then a tail of three.
+            off = [B.nb_cols - 1, (A.nb_rows - 1) * B.nb_cols]
+            extra = torch.tensor(off, dtype=torch.int32, device=DEVICE)
+            out_cap = oc + 5
+            out_ids = hbsm.make_plan(A, B, pc, accum_ids=extra, out_cap=out_cap).out_ids
+            args = (A.ids, A.data, B.ids, B.data, out_ids, A.nb_rows, B.nb_rows,
+                    B.nb_cols, out_cap, *exact_group_caps(A, B, out_ids, 4))
+            no_product = (out_ids == off[0]) | (out_ids == off[1]) | (out_ids == hbsm.SENTINEL)
+            for prec in ("highest", "high", "default", "bf16"):
+                cargs = args
+                if prec == "bf16":
+                    cargs = (args[0], A.data.bfloat16(), args[2], B.data.bfloat16()) + args[4:]
+                tier = "highest" if prec == "bf16" else prec
+                got = pg.groups_spgemm(*cargs, precision=tier)
+                want = pg.groups_spgemm_reference(*cargs, precision=tier)
+                torch.cuda.synchronize()
+                err = rel_err(got, want)
+                name = f"b={b} {tag} {prec}"
+                if not err <= ROWS_TOL:
+                    raise AssertionError(f"groups {name}: rel err {err:.3e} > {ROWS_TOL}")
+                if torch.count_nonzero(got[no_product]):
+                    raise AssertionError(f"groups {name}: slots with no product not zero")
+                print(f"  groups {name:44s} kernel-vs-plain rel err={err:.3e}")
+    # spgemm on the group kernel with a fused accumulate whose blocks lie
+    # off the product's support, against the torch path.
+    A = band_pattern(11, 11, 1, 128, seed=9)
+    D = block_matrix([10, 110], 11, 11, 128, np.random.default_rng(10))
+    gplan = hbsm.plan_groups(A, A)
+    pc, oc = plan_spgemm(A, A)
+    kw = dict(accum=D, beta=0.5)
+    C, info = hbsm.spgemm(A, A, pc, oc + 2, backend="groups", group_caps=gplan.caps, **kw)
+    Cx, _ = hbsm.spgemm(A, A, pc, oc + 2, backend="xla", **kw)
+    err = rel_err(C.data, Cx.data)
+    slot = int(torch.searchsorted(C.ids, torch.tensor(10, dtype=torch.int32, device=DEVICE)))
+    if not torch.equal(C.ids, Cx.ids) or not err <= ROWS_TOL or bool(info.row_overflow):
+        raise AssertionError(f"spgemm groups with accum: rel err {err:.3e} vs the torch path")
+    if not torch.equal(C.data[slot], 0.5 * D.data[0]):
+        raise AssertionError("spgemm groups: a union slot with no product is not beta*D")
+    # An undersized slab cap gives wrong blocks and must be flagged.
+    g_rows, a_gm, s_gm, c_gm = gplan.caps
+    _, bad = hbsm.spgemm(A, A, pc, oc, backend="groups", group_caps=(g_rows, a_gm, 8, c_gm))
+    if s_gm <= 8 or not bool(bad.row_overflow):
+        raise AssertionError(f"slab cap 8 < {s_gm} was not flagged")
+    print(f"  spgemm groups {gplan.caps} + 0.5*D vs torch path rel err={err:.3e}; "
+          f"union slot = beta*D exactly; slab cap 8 < {s_gm} flagged")
+
+
 def graft_step():
     """Phase 6: one SP2 step of the graft entry's input vs its f64 product."""
     import torch
@@ -346,24 +541,44 @@ def b3_input():
     return hbsm.add(A, hbsm.eye(n, b), beta=0.5, cap=A.cap + n // b)
 
 
-def counts():
-    from hierarchical_block_sparse_lib_tpu_torch.kernels import pallas_gemm_rows as rows
-    from hierarchical_block_sparse_lib_tpu_torch.kernels import pallas_norms as pn
+def wrappers():
+    """Kernel name -> the wrapper that counts its launches."""
+    from hierarchical_block_sparse_lib_tpu_torch.kernels import (
+        pallas_gemm,
+        pallas_gemm_fine,
+        pallas_gemm_groups,
+        pallas_gemm_rows,
+        pallas_gemm_stream,
+        pallas_norms,
+    )
 
     return {
-        "rows_spgemm": rows.rows_spgemm.launches,
-        "norms_and_keep": pn.norms_and_keep.launches,
-        "block_frob_squared": pn.block_frob_squared.launches,
+        "fine_spgemm": pallas_gemm_fine.fine_spgemm,
+        "rows_spgemm": pallas_gemm_rows.rows_spgemm,
+        "block_frob_squared": pallas_norms.block_frob_squared,
+        "norms_and_keep": pallas_norms.norms_and_keep,
+        "gather_gemm_accumulate_stream": pallas_gemm_stream.gather_gemm_accumulate_stream,
+        "groups_spgemm": pallas_gemm_groups.groups_spgemm,
+        "gather_gemm_accumulate": pallas_gemm.gather_gemm_accumulate,
     }
 
 
-def reset_counts():
-    from hierarchical_block_sparse_lib_tpu_torch.kernels import pallas_gemm_rows as rows
-    from hierarchical_block_sparse_lib_tpu_torch.kernels import pallas_norms as pn
+def counts(names=B3_KERNELS):
+    return {name: wrappers()[name].launches for name in names}
 
-    rows.rows_spgemm.launches = 0
-    pn.norms_and_keep.launches = 0
-    pn.block_frob_squared.launches = 0
+
+def reset_counts():
+    for fn in wrappers().values():
+        fn.launches = 0
+
+
+def launched(want: dict, path: str) -> dict:
+    """Every count as the path must leave it (zero for kernels not named),
+    or raise."""
+    got = {k: v for k, v in counts(KERNELS).items() if v}
+    if got != want:
+        raise AssertionError(f"{path} launches {got}, expected {want}")
+    return got
 
 
 def b3_path():
@@ -388,12 +603,8 @@ def b3_path():
     c1 = counts()
     plans = hbsm.plan_purify(A, steps, tau, prof, target_trace=n / 2)
     c2 = counts()
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
+    with no_host_sync():
         xp, sp = hbsm.purify_scan(A, steps, tau, plans=plans, **kw)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
     c3 = counts()
     torch.cuda.synchronize()
     path_s = time.perf_counter() - t0
@@ -423,7 +634,21 @@ def b3_path():
     print(f"[B3] iterate vs the port's float64 path: ids equal, rel err {err:.3e}")
     if err > 1e-5:
         raise AssertionError(f"B3 rel err {err:.3e} > 1e-5")
-    return A, prof, plans, launches
+    return A, prof, plans, launches, (xu, su)
+
+
+@contextlib.contextmanager
+def no_host_sync():
+    """Raise on any operation that makes the host wait for the card
+    (PyTorch's sync debug mode, which warns that it may miss some)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
 
 
 @contextlib.contextmanager
@@ -568,20 +793,13 @@ def acceptance_purification():
         raise AssertionError(f"purification rel err {rel:.3e} > 1e-4")
 
 
-def profile_planned_b3(A, prof, plans, card):
-    """Phase 10: torch.profiler over 10 planned B3 scans: device time by
-    kernel and the device's idle share of the window."""
+def device_profile(label, run, reps, card, unit="call", top=10):
+    """torch.profiler over `reps` calls of run(): the CUDA-event window,
+    the device's busy time and idle share, and device time by kernel, per
+    call.  Returns {kernel: device us per call}, empty when the profiler
+    recorded no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-
-    import hierarchical_block_sparse_lib_tpu_torch as hbsm
-
-    n, steps, tau, reps = 4096, 5, 1e-6, 10
-    kw = dict(target_trace=n / 2, plans=plans, **prof.kwargs())
-
-    def run():
-        for _ in range(reps):
-            hbsm.purify_scan(A, steps, tau, **kw)
 
     run()
     torch.cuda.synchronize()
@@ -589,7 +807,8 @@ def profile_planned_b3(A, prof, plans, card):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
-        run()
+        for _ in range(reps):
+            run()
         stop.record()
         stop.synchronize()
     window_us = start.elapsed_time(stop) * 1e3
@@ -601,24 +820,285 @@ def profile_planned_b3(A, prof, plans, card):
         if dev > 0 and e.cpu_time_total == 0:
             kernels[e.key] = (dev, e.count)
     busy = sum(t for t, _ in kernels.values())
-    print(f"[profile] {card}: {reps} planned B3 scans, window {window_us / reps:.1f} us "
-          f"per scan (CUDA events)")
+    print(f"[profile] {card}: {reps} x {label}, window {window_us / reps:.1f} us "
+          f"per {unit} (CUDA events)")
     if busy == 0:
         print("[profile] the profiler recorded no device time: not measured")
-        return
-    print(f"[profile]   device busy {busy / reps:.1f} us per scan, idle "
+        return {}
+    print(f"[profile]   device busy {busy / reps:.1f} us per {unit}, idle "
           f"{100 * (1 - busy / window_us):.1f}% of the window")
-    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])
-    for name, (t, cnt) in top[:10]:
-        print(f"[profile]   {100 * t / busy:5.1f}%  {t / reps:8.1f} us/scan  "
-              f"{cnt // reps:4d} launches/scan  {name[:90]}")
+    for name, (t, cnt) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:top]:
+        print(f"[profile]   {100 * t / busy:5.1f}%  {t / reps:8.1f} us/{unit}  "
+              f"{cnt // reps:4d} launches/{unit}  {name[:90]}")
     print(f"[profile]   {len(kernels)} distinct device functions, "
-          f"{sum(c for _, c in kernels.values()) // reps} launches per scan")
+          f"{sum(c for _, c in kernels.values()) // reps} launches per {unit}")
+    return {name: t / reps for name, (t, _) in kernels.items()}
+
+
+def profile_planned_b3(A, prof, plans, card):
+    """Phase 10: torch.profiler over 10 planned B3 scans: device time by
+    kernel and the device's idle share of the window."""
+    import hierarchical_block_sparse_lib_tpu_torch as hbsm
+
+    n, steps, tau = 4096, 5, 1e-6
+    kw = dict(target_trace=n / 2, plans=plans, **prof.kwargs())
+    device_profile("planned B3 scan", lambda: hbsm.purify_scan(A, steps, tau, **kw), 10,
+                   card, unit="scan")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60,
     )
     print(f"[profile]   after: {smi.stdout.strip()}")
+
+
+def purify_b3(A, prof, scan):
+    """Phase 11: B3's input through `purify`, which passes no row caps, so
+    "auto" takes the pair-stream kernel; held against phase 7's unplanned
+    scan on the row-panel kernel."""
+    import dataclasses
+
+    import torch
+
+    import hierarchical_block_sparse_lib_tpu_torch as hbsm
+    from hierarchical_block_sparse_lib_tpu_torch.ops.spgemm import resolve_backend
+
+    n, steps, tau = A.n_rows, 5, 1e-6
+    xs, ss = scan
+    backend = resolve_backend(A.block_size, A.dtype, A.nb_cols, prof.pair_cap)
+    torch.cuda.synchronize()
+    reset_counts()
+    x, stats = hbsm.purify(A, steps, tau, pair_cap=prof.pair_cap, out_cap=prof.out_cap,
+                           target_trace=n / 2, cap=prof.cap)
+    torch.cuda.synchronize()
+    got = launched({"gather_gemm_accumulate_stream": steps, "norms_and_keep": steps},
+                   "purify on B3")
+    if backend != "pallas":
+        raise AssertionError(f"purify at b=128 resolves to {backend!r}")
+    for k, st in enumerate(stats):
+        for f in dataclasses.fields(st):
+            g, w = getattr(st, f.name), getattr(ss, f.name)[k]
+            if f.name == "trace":  # the same sum; 1e-6 relative allows another order
+                same = abs(float(g) - float(w)) <= 1e-6 * abs(float(w))
+            else:
+                same = bool(g == w)
+            if not same:
+                raise AssertionError(f"purify step {k} {f.name}: {g} vs the scan's {w}")
+    if not torch.equal(x.ids, xs.ids):
+        raise AssertionError("purify and the rows-backend scan keep different blocks")
+    err = rel_err(x.data, xs.data)
+    traces_equal = all(float(st.trace) == float(ss.trace[k]) for k, st in enumerate(stats))
+    print(f"[purify] B3 input, {steps} steps on {backend!r}: launches {got}; stats equal "
+          f"to the rows-backend scan (traces bitwise: {traces_equal}); ids equal, iterate "
+          f"rel err {err:.3e} (bitwise: {torch.equal(x.data, xs.data)})")
+    if err > 1e-5:
+        raise AssertionError(f"purify iterate rel err {err:.3e} > 1e-5")
+    return got["gather_gemm_accumulate_stream"]
+
+
+def in_turns(fns: dict):
+    """Median CUDA-event times of each fn, measured in order and then in
+    reverse order: name -> (first, second) medians in ms."""
+    first = {name: cuda_time_ms(fn)[0] for name, fn in fns.items()}
+    second = {name: cuda_time_ms(fn)[0] for name, fn in reversed(fns.items())}
+    return {name: (first[name], second[name]) for name in fns}
+
+
+def b1_input():
+    """bench.py's B1 (bench.py:700-721): banded 4096^2, bandwidth 64,
+    assembled at leaf 16 and coarsened x8 with leaf tracking.  Returns
+    (A16, A, occ)."""
+    import hierarchical_block_sparse_lib_tpu_torch as hbsm
+    from hierarchical_block_sparse_lib_tpu_torch.utils import generators as gen
+
+    n, bw = 4096, 64
+    r, c, v = gen.banded_coo(n, bw, seed=0)
+    a16 = hbsm.from_coo(r, c, v, n, block_size=16)
+    a, occ = hbsm.coarsen(a16, 8, cap=hbsm.plan_coarsen(a16, 8), track_leaves=True)
+    return a16, a, occ
+
+
+def b1_path(card):
+    """Phase 12: the configured B1 on the row-group kernel."""
+    import torch
+
+    import hierarchical_block_sparse_lib_tpu_torch as hbsm
+    from hierarchical_block_sparse_lib_tpu_torch.kernels import pallas_gemm_groups as pg
+    from hierarchical_block_sparse_lib_tpu_torch.ops.spgemm import (
+        plan_spgemm,
+        plan_spgemm_ex,
+        resolve_backend,
+    )
+
+    torch.cuda.synchronize()
+    reset_counts()
+    a16, A, occ = b1_input()
+    fine_pairs, _ = plan_spgemm(a16, a16)
+    gplan = hbsm.plan_groups(A, A)
+    pc, oc, mbr, mcr = plan_spgemm_ex(A, A)
+    caps = dict(row_caps=(mbr, mcr), group_caps=gplan.caps)
+    backend = resolve_backend(A.block_size, A.dtype, A.nb_cols, pc, **caps)
+    plan_fields = dict(caps=gplan.caps, slab_blocks=gplan.slab_blocks, pairs=gplan.pairs)
+    print(f"[B1] {int(A.nnz)} blocks of 128 (from {int(a16.nnz)} of 16); {gplan}, "
+          f"reuse {gplan.reuse:.2f}; pairs {pc}, out {oc}, leaf-16 pairs {fine_pairs}; "
+          f"auto -> {backend!r}")
+    if plan_fields != B1_PLAN or (pc, oc, fine_pairs) != B1_COUNTS or backend != "groups":
+        raise AssertionError(f"B1 plans differ from the JAX package's {B1_PLAN}, {B1_COUNTS}")
+    leaf = dict(a_leaf_occ=occ, b_leaf_occ=occ)
+    Cm, im = hbsm.matmul(A, A)
+    Cu, iu = hbsm.spgemm(A, A, pc, oc, **caps, **leaf)
+    plan = hbsm.make_plan(A, A, pc)
+    with no_host_sync():
+        Cp, ip = hbsm.spgemm(A, A, pc, oc, plan=plan, **caps, **leaf)
+    torch.cuda.synchronize()
+    got = launched({"groups_spgemm": 3}, "B1 path (matmul, spgemm, planned spgemm)")
+    for name, C, info, want_leaf in (("matmul", Cm, im, -1), ("spgemm", Cu, iu, fine_pairs),
+                                     ("planned spgemm", Cp, ip, fine_pairs)):
+        n = (int(info.n_block_pairs), int(info.n_out_blocks), int(info.n_leaf_multiplies))
+        flags = [bool(getattr(info, f)) for f in (
+            "pair_overflow", "out_overflow", "row_overflow", "plan_mismatch")]
+        if n != (pc, oc, want_leaf) or any(flags):
+            raise AssertionError(f"B1 {name}: counters {n}, flags {flags}")
+        if not (torch.equal(C.ids, Cu.ids) and torch.equal(C.data, Cu.data)):
+            raise AssertionError(f"B1 {name} differs from the unplanned spgemm")
+    d16 = hbsm.to_dense(a16).double()
+    err = rel_err(hbsm.to_dense(Cu).double(), d16 @ d16)
+    del d16
+    print(f"[B1] launches {got}; matmul, spgemm and planned spgemm (no host sync) "
+          f"bitwise equal with counters {pc}/{oc}/{fine_pairs} (leaf) and no flag; vs "
+          f"f64 dense oracle rel err {err:.3e}")
+    if err > 1e-5:
+        raise AssertionError(f"B1 rel err {err:.3e} > 1e-5")
+
+    gargs = (A.ids, A.data, A.ids, A.data, Cu.ids, A.nb_rows, A.nb_rows, A.nb_cols, oc,
+             *gplan.caps)
+    gk = pg.groups_spgemm(*gargs)
+    gp = pg.groups_spgemm_reference(*gargs)
+    torch.cuda.synchronize()
+    abs_err, rel = float((gk - gp).abs().max()), rel_err(gk, gp)
+    if rel > ROWS_TOL:
+        raise AssertionError(f"B1 groups_spgemm vs plain rel err {rel:.3e}")
+    print(f"[B1] groups_spgemm vs plain: max abs err {abs_err:.3e}, rel {rel:.3e}")
+    k_ms, p_ms, four = alternate(lambda: pg.groups_spgemm(*gargs),
+                                 lambda: pg.groups_spgemm_reference(*gargs))
+    backends = ("groups", "rows", "pallas")
+    for be in backends[1:]:
+        C, _ = hbsm.spgemm(A, A, pc, oc, plan=plan, backend=be, **caps)
+        print(f"[B1] planned spgemm on {be!r} vs 'groups': rel diff "
+              f"{rel_err(C.data, Cu.data):.3e} (bitwise: {torch.equal(C.data, Cu.data)})")
+    times = in_turns({be: (lambda be=be: hbsm.spgemm(A, A, pc, oc, plan=plan, backend=be, **caps))
+                      for be in backends})
+    print(f"[time] {card}: B1, CUDA events, median of 7 after 2 warm-up calls")
+    print(f"[time]   groups_spgemm kernel {four[0]:.4f} / {four[1]:.4f} ms   "
+          f"plain {four[2]:.4f} / {four[3]:.4f} ms")
+    for be, (t1, t2) in times.items():
+        print(f"[time]   planned spgemm on {be:7s} {t1:.4f} / {t2:.4f} ms "
+              f"(in order groups, rows, pallas, then reversed)")
+    for be in backends:
+        device_profile(f"planned B1 spgemm on {be!r}",
+                       lambda be=be: hbsm.spgemm(A, A, pc, oc, plan=plan, backend=be, **caps),
+                       20, card, top=4)
+    entry = dict(max_abs_err=abs_err, ms=k_ms, plain_ms=p_ms, library_ms=None,
+                 bound=bound(2 * 128**3 * pc, A.data.numel() * 4 + oc * 128 * 128 * 4))
+    return entry, got["groups_spgemm"]
+
+
+def b2_tile128(card):
+    """Phase 13: B2-tile128 without row caps, on the pair-stream kernel,
+    and the v1 call on the same pairs."""
+    import torch
+
+    import hierarchical_block_sparse_lib_tpu_torch as hbsm
+    from hierarchical_block_sparse_lib_tpu_torch.core.block_matrix import first_of_run
+    from hierarchical_block_sparse_lib_tpu_torch.kernels import pallas_gemm
+    from hierarchical_block_sparse_lib_tpu_torch.kernels import pallas_gemm_stream as ps
+    from hierarchical_block_sparse_lib_tpu_torch.ops.spgemm import plan_spgemm_ex, resolve_backend
+    from hierarchical_block_sparse_lib_tpu_torch.utils.generators import random_block_matrix
+
+    torch.cuda.synchronize()
+    reset_counts()
+    A = random_block_matrix(16384, 128, 0.05, seed=2)
+    pc, oc, _, _ = plan_spgemm_ex(A, A)
+    backend = resolve_backend(A.block_size, A.dtype, A.nb_cols, pc)
+    C, info = hbsm.spgemm(A, A, pc, oc)
+    C2, _ = hbsm.spgemm(A, A, pc, oc)
+    plan = hbsm.make_plan(A, A, pc)
+    with no_host_sync():
+        Cp, ip = hbsm.spgemm(A, A, pc, oc, plan=plan)
+    torch.cuda.synchronize()
+    got = launched({"gather_gemm_accumulate_stream": 3}, "B2-tile128 path")
+    print(f"[B2t] 16384^2 b=128 5% seed 2: {int(A.nnz)} blocks, pairs {pc}, out {oc}, "
+          f"no row caps: auto -> {backend!r}; launches {got}")
+    if (pc, oc) != B2T_COUNTS or backend != "pallas":
+        raise AssertionError(f"B2-tile128 plan ({pc}, {oc}) or backend {backend!r}")
+    for name, i in (("spgemm", info), ("planned spgemm", ip)):
+        n = (int(i.n_block_pairs), int(i.n_out_blocks))
+        flags = [bool(getattr(i, f)) for f in (
+            "pair_overflow", "out_overflow", "row_overflow", "plan_mismatch")]
+        if n != (pc, oc) or any(flags):
+            raise AssertionError(f"B2-tile128 {name}: counters {n}, flags {flags}")
+    for name, R in (("repeated", C2), ("planned", Cp)):
+        if not (torch.equal(R.ids, C.ids) and torch.equal(R.data, C.data)):
+            raise AssertionError(f"B2-tile128 {name} spgemm is not bitwise equal")
+    del C2, Cp
+    A64 = A.with_data(A.data.double())
+    C64, _ = hbsm.spgemm(A64, A64, pc, oc)
+    if not torch.equal(C64.ids, C.ids):
+        raise AssertionError("B2-tile128 f32 and f64 products have different ids")
+    err = rel_err(C.data.double(), C64.data)
+    del A64, C64
+    print(f"[B2t] counters as planned, no flag; repeated and planned (no host sync) calls "
+          f"bitwise equal; "
+          f"vs the float64 path: ids equal, rel err {err:.3e}")
+    if err > 1e-5:
+        raise AssertionError(f"B2-tile128 rel err {err:.3e} > 1e-5")
+
+    # The v1 entry point on the same pairs, in one chunk of PAIR_CHUNK.
+    seg = torch.where(plan.c_id != hbsm.SENTINEL,
+                      torch.cumsum(first_of_run(plan.c_id), 0) - 1, oc).to(torch.int32)
+    sargs = (A.data, A.data, plan.a_idx, plan.b_idx, seg, oc)
+    torch.cuda.synchronize()
+    reset_counts()
+    V = pallas_gemm.gather_gemm_accumulate(*sargs)
+    torch.cuda.synchronize()
+    v1 = launched({"gather_gemm_accumulate": 1, "gather_gemm_accumulate_stream": 1},
+                  "gather_gemm_accumulate on B2-tile128")
+    if not torch.equal(V, C.data):
+        raise AssertionError("gather_gemm_accumulate differs from spgemm's stream product")
+    sk = ps.gather_gemm_accumulate_stream(*sargs)
+    sp = ps.gather_gemm_accumulate_stream_reference(*sargs)
+    vp = pallas_gemm.gather_gemm_accumulate_reference(*sargs)
+    torch.cuda.synchronize()
+    abs_err, rel = float((sk - sp).abs().max()), rel_err(sk, sp)
+    v1_err, v1_rel = float((V - vp).abs().max()), rel_err(V, vp)
+    del V, sk, sp, vp
+    print(f"[B2t] gather_gemm_accumulate == spgemm's product, bitwise (launches {v1}); "
+          f"vs plain: stream kernel max abs err {abs_err:.3e} (rel {rel:.3e}), "
+          f"v1 call {v1_err:.3e} (rel {v1_rel:.3e})")
+    if max(rel, v1_rel) > ROWS_TOL:
+        raise AssertionError(f"B2-tile128 vs plain rel err {rel:.3e}, {v1_rel:.3e}")
+    ts = alternate(lambda: ps.gather_gemm_accumulate_stream(*sargs),
+                   lambda: ps.gather_gemm_accumulate_stream_reference(*sargs))
+    tv = alternate(lambda: pallas_gemm.gather_gemm_accumulate(*sargs),
+                   lambda: pallas_gemm.gather_gemm_accumulate_reference(*sargs))
+    tsp = in_turns({"planned spgemm": lambda: hbsm.spgemm(A, A, pc, oc, plan=plan)})
+    flops = 2 * 128**3 * pc
+    b2t_bound = bound(flops, A.data.numel() * 4 + 3 * pc * 4 + oc * 128 * 128 * 4)
+    print(f"[time] {card}: B2-tile128, CUDA events, median of 7 after 2 warm-up calls, "
+          f"in turns plain, kernel, kernel, plain; bound {b2t_bound[0]:.4f} ms ({b2t_bound[1]})")
+    for name, (_, _, four) in (("stream kernel", ts), ("gather_gemm_accumulate", tv)):
+        print(f"[time]   {name:24s} kernel {four[0]:.4f} / {four[1]:.4f} ms "
+              f"({flops / four[0] / 1e9:.1f} TFLOP/s)   plain {four[2]:.4f} / {four[3]:.4f} ms")
+    t1, t2 = tsp["planned spgemm"]
+    print(f"[time]   planned spgemm (auto -> 'pallas') {t1:.4f} / {t2:.4f} ms")
+    device_profile("planned B2-tile128 spgemm (auto -> 'pallas')",
+                   lambda: hbsm.spgemm(A, A, pc, oc, plan=plan), 10, card, top=5)
+    entries = {
+        "gather_gemm_accumulate_stream": dict(max_abs_err=abs_err, ms=ts[0], plain_ms=ts[1],
+                                              bound=b2t_bound, library_ms=None),
+        "gather_gemm_accumulate": dict(max_abs_err=v1_err, ms=tv[0], plain_ms=tv[1],
+                                       bound=b2t_bound, library_ms=None),
+    }
+    return entries, got["gather_gemm_accumulate_stream"], v1["gather_gemm_accumulate"]
 
 
 def main() -> int:
@@ -645,7 +1125,7 @@ def main() -> int:
 
     # Phase 2: build, one nvcc per source, all started together.
     t0 = time.perf_counter()
-    _build.load_all(["gemm_fine", "gemm_rows", "norms"])
+    _build.load_all(["gemm_fine", "gemm_rows", "norms", "gemm_stream", "gemm_groups"])
     print(f"[build] kernels ready in {time.perf_counter() - t0:.1f} s")
     for name, (secs, log) in sorted(_build.build_logs.items()):
         print(f"[build] nvcc {name}: {secs:.1f} s")
@@ -658,12 +1138,14 @@ def main() -> int:
     small_shapes()
     small_rows()
     small_norms()
+    small_stream()
+    small_groups()
 
     # Phase 4: the B2 path at its configured size.
     n, b, density, seed = 16384, 32, 0.05, 2
     A = random_block_matrix(n, b, density, seed=seed)
     torch.cuda.synchronize()
-    fine_spgemm.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     pc, oc, mbr, mcr = plan_spgemm_ex(A, A)
     Af = hbsm.fine_pack(A)
@@ -730,7 +1212,7 @@ def main() -> int:
     graft_step()
 
     # Phases 7 and 8: the B3 path, then its kernels alone and the times.
-    A3, prof, plans, b3_launches = b3_path()
+    A3, prof, plans, b3_launches, b3_scan = b3_path()
     entries, _ = b3_kernels_and_times(A3, prof, plans, card)
 
     # Phase 9: purification against the spectral projector.
@@ -738,13 +1220,32 @@ def main() -> int:
 
     # Phase 10: profile of the planned B3 scan.
     profile_planned_b3(A3, prof, plans, card)
+
+    # Phase 11: B3's input through purify, on the pair-stream kernel.
+    purify_launches = purify_b3(A3, prof, b3_scan)
+    del A3, prof, plans, b3_scan
+    torch.cuda.empty_cache()
+
+    # Phases 12 and 13: B1 on the row-group kernel; B2-tile128 on the
+    # pair-stream kernel and the v1 call.
+    entries["groups_spgemm"], b1_launches = b1_path(card)
+    stream_entries, b2t_launches, v1_launches = b2_tile128(card)
+    entries.update(stream_entries)
     print(f"[mem] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     entries["fine_spgemm"] = dict(
         max_abs_err=fine_err, ms=fine_ms, plain_ms=fine_plain_ms,
         bound=fine_bound, library_ms=None,
     )
-    launches = dict(b3_launches, fine_spgemm=fine_launches)
+    launches = dict(
+        b3_launches, fine_spgemm=fine_launches, groups_spgemm=b1_launches,
+        gather_gemm_accumulate_stream=b2t_launches + purify_launches,
+        gather_gemm_accumulate=v1_launches,
+    )
+    print(f"[launches] gather_gemm_accumulate_stream: {b2t_launches} on B2-tile128 + "
+          f"{purify_launches} in purify on B3")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a kernel never launched on its path: {launches}")
     rows_out = []
     for name, (source, replaces) in KERNELS.items():
         e = entries[name]

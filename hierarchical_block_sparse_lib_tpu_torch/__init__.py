@@ -10,11 +10,13 @@ package imports torch and numpy, never jax.
 
 Ported so far: the fine-leaf chain (``fine_pack`` -> ``make_fine_plan``
 -> ``fine_matmul`` -> ``fine_add``/``fine_scale`` -> ``fine_unpack``) on
-the Hopper kernel of ``kernels/pallas_gemm_fine.py::fine_spgemm``; and
-SP2 purification at 128-wide leaves (``profile_purify`` ->
-``plan_purify`` -> ``purify_scan``, over ``spgemm`` and ``truncate``) on
-the kernels of ``kernels/pallas_gemm_rows.py::rows_spgemm`` and
-``kernels/pallas_norms.py``.  Constructors build on the CUDA card unless
+the Hopper kernel of ``kernels/pallas_gemm_fine.py::fine_spgemm``; SP2
+purification at 128-wide leaves (``profile_purify`` -> ``plan_purify``
+-> ``purify_scan``, and ``purify``, over ``spgemm`` and ``truncate``) on
+the kernels of ``kernels/pallas_gemm_rows.py::rows_spgemm``,
+``kernels/pallas_gemm_stream.py`` and ``kernels/pallas_norms.py``; and
+the eager ``matmul`` with ``plan_groups`` on the row-group kernel of
+``kernels/pallas_gemm_groups.py``.  Constructors build on the CUDA card unless
 given another ``device``.
 """
 
@@ -47,6 +49,11 @@ from hierarchical_block_sparse_lib_tpu_torch.ops.spgemm import (
     make_plan,
     spgemm,
     spgemm_symbolic,
+)
+from hierarchical_block_sparse_lib_tpu_torch.ops.matmul import matmul
+from hierarchical_block_sparse_lib_tpu_torch.kernels.pallas_gemm_groups import (
+    GroupPlan,
+    plan_groups,
 )
 from hierarchical_block_sparse_lib_tpu_torch.ops.repack import (
     coarsen,
@@ -100,6 +107,9 @@ __all__ = [
     "make_plan",
     "SymbolicPlan",
     "MultiplyInfo",
+    "matmul",
+    "plan_groups",
+    "GroupPlan",
     "repack",
     "coarsen",
     "plan_coarsen",

@@ -32,93 +32,11 @@
 //                lo = bf16(x - hi); hi*hi + hi*lo + lo*hi per term;
 //   2 "default": f32 operands rounded to bf16, f32 products and sums.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "gemm_tile.cuh"
 
 namespace {
 
-constexpr int kB = 128;  // leaf size
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kPad = 4;  // row padding of the transposed A slice
-constexpr int kSentinel = 0x7fffffff;
-
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-template <int MODE>
-struct Tile {
-  // k-slice depth: the split tier keeps hi and lo copies of both slices.
-  static constexpr int KS = MODE == 1 ? 16 : 32;
-  float a[KS][kB + kPad];  // A slice, transposed: a[kk][row]
-  float b[KS][kB];         // B slice: b[kk][col]
-  float a_lo[MODE == 1 ? KS : 1][kB + kPad];
-  float b_lo[MODE == 1 ? KS : 1][kB];
-};
-
-// Stage value x of a slice at [kk][idx] in the tier's form.
-template <int MODE, int W>
-__device__ __forceinline__ void put(float (*hi)[W], float (*lo)[W], int kk,
-                                    int idx, float x) {
-  if (MODE == 1) {
-    const float h = bf16_round(x);
-    hi[kk][idx] = h;
-    lo[kk][idx] = bf16_round(x - h);
-  } else {
-    hi[kk][idx] = MODE == 2 ? bf16_round(x) : x;
-  }
-}
-
-__device__ __forceinline__ void load8(float* v, const float* row, int t) {
-  const float4 p = *reinterpret_cast<const float4*>(row + t * 4);
-  const float4 q = *reinterpret_cast<const float4*>(row + 64 + t * 4);
-  v[0] = p.x; v[1] = p.y; v[2] = p.z; v[3] = p.w;
-  v[4] = q.x; v[5] = q.y; v[6] = q.z; v[7] = q.w;
-}
-
-// acc[r][c] += sum_kk A(row_r, k0+kk) B(k0+kk, col_c) over the staged
-// slice; this thread's rows are ty*4 + {0..3} and 64 + ty*4 + {0..3},
-// its columns tx*4 + {0..3} and 64 + tx*4 + {0..3}.
-template <int MODE>
-__device__ __forceinline__ void multiply_slice(float (&acc)[8][8],
-                                               const Tile<MODE>& s, int ty,
-                                               int tx) {
-#pragma unroll 4
-  for (int kk = 0; kk < Tile<MODE>::KS; ++kk) {
-    float a[8], b[8];
-    load8(a, s.a[kk], ty);
-    load8(b, s.b[kk], tx);
-    if (MODE == 1) {
-      float al[8], bl[8];
-      load8(al, s.a_lo[kk], ty);
-      load8(bl, s.b_lo[kk], tx);
-#pragma unroll
-      for (int r = 0; r < 8; ++r) {
-#pragma unroll
-        for (int c = 0; c < 8; ++c) {
-          acc[r][c] = fmaf(a[r], b[c],
-                           fmaf(al[r], b[c], fmaf(a[r], bl[c], acc[r][c])));
-        }
-      }
-    } else {
-#pragma unroll
-      for (int r = 0; r < 8; ++r) {
-#pragma unroll
-        for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ int tile_row(int ty, int r) {
-  return ty * 4 + (r >> 2) * 64 + (r & 3);
-}
+using namespace hbsm;
 
 template <typename T, int MODE>
 __global__ void __launch_bounds__(kThreads)
@@ -134,31 +52,21 @@ __global__ void __launch_bounds__(kThreads)
                        const float* __restrict__ tau2_ptr, float tau2_val,
                        float* __restrict__ out, int nbr, int nbc,
                        int b_row_max, int triu) {
-  constexpr int KS = Tile<MODE>::KS;
   __shared__ __align__(16) Tile<MODE> s;
   __shared__ int hit_e[kThreads];
   __shared__ int hit_q[kThreads];
   __shared__ int warp_hits[kWarps];
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
   const int ty = threadIdx.x >> 4;
   const int tx = threadIdx.x & 15;
-  const size_t slot_off = static_cast<size_t>(blockIdx.x) * kB * kB;
+  const size_t slot_off = static_cast<size_t>(blockIdx.x) * kTile * kTile;
 
   const int id = out_ids[blockIdx.x];
   const int i = id / nbc;
   const bool valid = id != kSentinel && i < nbr;
   float acc[8][8];
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      acc[r][c] = valid && acc_data != nullptr
-                      ? acc_data[slot_off + tile_row(ty, r) * kB + tile_row(tx, c)]
-                      : 0.f;
-    }
-  }
+  load_tile(acc, valid && acc_data != nullptr ? acc_data + slot_off : nullptr,
+            kTile, ty, tx);
 
   const int j = id - i * nbc;
   // Upper-triangle mode computes only slots with j >= i; the others keep
@@ -175,64 +83,22 @@ __global__ void __launch_bounds__(kThreads)
       if (e < e_end) {
         const int k = a_col[e];
         const int start = b_row_start[k];
-        const int stop = start + min(b_row_start[k + 1] - start, b_row_max);
-        int lo = start, hi = stop;
-        while (lo < hi) {
-          const int mid = (lo + hi) >> 1;
-          if (b_col[mid] < j) {
-            lo = mid + 1;
-          } else {
-            hi = mid;
-          }
-        }
-        if (lo < stop && b_col[lo] == j) q = lo;
+        q = find_sorted(b_col, start,
+                        start + min(b_row_start[k + 1] - start, b_row_max), j);
         // SpAMM skip: the reference kernel's exact f32 test.
         if (q >= 0 && an2 != nullptr && !(an2[e] * bn2[q] > tau2)) q = -1;
       }
-      // Compact the hits, keeping ascending e.
-      const unsigned ball = __ballot_sync(0xffffffffu, q >= 0);
-      if (lane == 0) warp_hits[warp] = __popc(ball);
-      __syncthreads();
-      int offset = 0, n_hits = 0;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) {
-        const int h = warp_hits[w];
-        offset += w < warp ? h : 0;
-        n_hits += h;
-      }
-      if (q >= 0) {
-        const int slot = offset + __popc(ball & ((1u << lane) - 1u));
-        hit_e[slot] = e;
-        hit_q[slot] = q;
-      }
-      __syncthreads();
+      // Products in ascending A-entry order.
+      const int n_hits = compact_hits(e, q, hit_e, hit_q, warp_hits);
       for (int h = 0; h < n_hits; ++h) {
-        const T* ablk = a + static_cast<size_t>(hit_e[h]) * kB * kB;
-        const T* bblk = b + static_cast<size_t>(hit_q[h]) * kB * kB;
-        for (int k0 = 0; k0 < kB; k0 += KS) {
-          for (int v = threadIdx.x; v < KS * kB; v += kThreads) {
-            const int row = v / KS, kk = v % KS;  // A(row, k0 + kk)
-            put<MODE>(s.a, s.a_lo, kk, row, widen(ablk[row * kB + k0 + kk]));
-            const int kb = v / kB, col = v % kB;  // B(k0 + kb, col)
-            put<MODE>(s.b, s.b_lo, kb, col, widen(bblk[(k0 + kb) * kB + col]));
-          }
-          __syncthreads();
-          multiply_slice<MODE>(acc, s, ty, tx);
-          __syncthreads();
-        }
+        accumulate_product<T, MODE>(
+            acc, s, a + static_cast<size_t>(hit_e[h]) * kTile * kTile,
+            b + static_cast<size_t>(hit_q[h]) * kTile * kTile, kTile, ty, tx);
       }
     }
   }
   // Every slot is written: SENTINEL tail slots as zeros.
-  float* dst = out + slot_off;
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    float* row = dst + tile_row(ty, r) * kB;
-    *reinterpret_cast<float4*>(row + tx * 4) =
-        make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
-    *reinterpret_cast<float4*>(row + 64 + tx * 4) =
-        make_float4(acc[r][4], acc[r][5], acc[r][6], acc[r][7]);
-  }
+  store_tile(out + slot_off, acc, kTile, ty, tx);
 }
 
 template <typename T, int MODE>
@@ -270,7 +136,7 @@ int hbsm_rows_spgemm(const int* out_ids, const int* a_row_start,
                      int triu, int block_size, int is_bf16, int precision,
                      void* stream) {
   if (out_cap == 0) return 0;
-  if (block_size != kB) return static_cast<int>(cudaErrorInvalidValue);
+  if (block_size != kTile) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     return launch<__nv_bfloat16, 0>(out_ids, a_row_start, a_col, b_row_start,

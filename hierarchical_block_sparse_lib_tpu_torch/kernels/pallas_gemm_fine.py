@@ -134,6 +134,17 @@ def _check_index(name: str, t: torch.Tensor, length: int, device) -> None:
         raise ValueError(f"{name} is on {t.device}, operands on {device}")
 
 
+def check_blocks(name: str, t: torch.Tensor, shape: tuple, dtype, device) -> None:
+    """Raise unless `t` is a contiguous, 16-byte aligned [cap, b, b] block
+    tensor of `dtype` on `device` (what the 128-tile GEMM kernels read)."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, operands on {device}")
+    if tuple(t.shape) != shape or t.dtype != dtype:
+        raise ValueError(f"{name}: {t.dtype}{tuple(t.shape)}, expected {dtype}{shape}")
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{name}: need contiguous 16-byte aligned blocks")
+
+
 def fine_spgemm(
     a_ids: torch.Tensor,  # int32[capA] sorted (SENTINEL padded)
     a_data: torch.Tensor,  # [capA, b, b] canonical or [capA, b*b/128, 128] flat

@@ -31,6 +31,7 @@ from hierarchical_block_sparse_lib_tpu_torch.kernels.pallas_gemm_fine import (
     _bucket,
     _check_index,
     build_tables,
+    check_blocks,
     expand_pairs,
     pair_slots,
     tier_bmm,
@@ -124,15 +125,6 @@ def _kernel_lib():
     return _LIB
 
 
-def _check_blocks(name: str, t: torch.Tensor, shape: tuple, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, operands on {device}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name}: rows_spgemm needs 16-byte aligned blocks")
-
-
 def rows_spgemm(
     a_ids: torch.Tensor,  # int32[capA] sorted (SENTINEL padded)
     a_data: torch.Tensor,  # [capA, b, b] f32 or bf16
@@ -172,15 +164,13 @@ def rows_spgemm(
             f"rows_spgemm kernel needs b == 128 with f32 or bf16 data, "
             f"got b={b} {a_data.dtype}"
         )
-    if b_data.dtype != a_data.dtype:
-        raise ValueError(f"A is {a_data.dtype}, B is {b_data.dtype}")
     if (a_norms2 is None) != (b_norms2 is None):
         raise ValueError("the SpAMM skip needs both a_norms2 and b_norms2")
     precision = _tier(precision, a_data.dtype)
     a_data, b_data = a_data.contiguous(), b_data.contiguous()
     cap_a, cap_b = a_data.shape[0], b_data.shape[0]
-    _check_blocks("a_data", a_data, (cap_a, b, b), device)
-    _check_blocks("b_data", b_data, (cap_b, b, b), device)
+    check_blocks("a_data", a_data, (cap_a, b, b), a_data.dtype, device)
+    check_blocks("b_data", b_data, (cap_b, b, b), a_data.dtype, device)
     a_row_start, a_col, b_row_start, b_col, _, _ = build_tables(
         a_ids, b_ids, out_ids, nbr, nbrB, nbc
     )
@@ -194,7 +184,7 @@ def rows_spgemm(
     ptrs = {}
     if acc_data is not None:
         acc_data = acc_data.to(torch.float32).contiguous()
-        _check_blocks("acc_data", acc_data, (out_cap, b, b), device)
+        check_blocks("acc_data", acc_data, (out_cap, b, b), torch.float32, device)
         ptrs["acc"] = acc_data.data_ptr()
     t2_dev, t2 = None, 0.0
     if a_norms2 is not None:

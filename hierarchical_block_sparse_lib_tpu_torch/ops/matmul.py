@@ -1,0 +1,55 @@
+"""Eager front door of the multiply (port of ``ops/matmul.py``): exact host
+planning of the capacities, then `spgemm` with the caps that let "auto"
+pick a kernel.
+
+The choice of backend is the reference's: a row-group plan is asked for
+only when the product has fewer than 16 block pairs per A block-row (the
+regime where the TPU measured the group kernel ahead), and "auto" then
+prefers groups, then rows, then the stream kernel (`resolve_backend`).
+Both packages therefore pick the same backend on the same input; the
+H100 times that would re-decide the rule are in PERF.md.
+"""
+
+from __future__ import annotations
+
+from hierarchical_block_sparse_lib_tpu_torch.core.block_matrix import BlockMatrix
+from hierarchical_block_sparse_lib_tpu_torch.kernels.pallas_gemm_groups import (
+    plan_groups,
+)
+from hierarchical_block_sparse_lib_tpu_torch.ops import basic
+from hierarchical_block_sparse_lib_tpu_torch.ops.spgemm import plan_spgemm_ex, spgemm
+
+
+def matmul(
+    a: BlockMatrix,
+    b: BlockMatrix,
+    alpha=1.0,
+    transpose_a: bool = False,
+    transpose_b: bool = False,
+    precision: str = "highest",
+    backend: str = "auto",
+):
+    """C = alpha * op(A) @ op(B), exactly sized.  Returns (C, MultiplyInfo).
+
+    Plans on the host for every call (the planner reads the ids); in a
+    loop over a fixed structure use `spgemm` with precomputed capacities
+    and a `make_plan` plan instead."""
+    ae = basic.transpose(a) if transpose_a else a
+    be = basic.transpose(b) if transpose_b else b
+    pc, oc, mbr, mcr = plan_spgemm_ex(ae, be)
+    gplan = plan_groups(ae, be) if pc < 16 * max(ae.nb_rows, 1) else None
+    return spgemm(
+        ae, be, pair_cap=max(pc, 1), out_cap=max(oc, 1), alpha=alpha,
+        precision=precision, backend=backend, row_caps=(mbr, mcr),
+        group_caps=gplan.caps if gplan is not None else None,
+    )
+
+
+def syrk(a: BlockMatrix, alpha=1.0, transpose: bool = False,
+         precision: str = "highest", backend: str = "auto", full: bool = True):
+    """C = alpha * A @ A^T with only upper-triangle products: not ported
+    yet, because `spgemm` lacks its `syrk_upper` mode."""
+    raise NotImplementedError(
+        "syrk is not ported yet (ROADMAP Queue 1 #6): it needs spgemm's "
+        "syrk_upper mode"
+    )

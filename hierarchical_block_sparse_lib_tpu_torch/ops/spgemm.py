@@ -6,16 +6,17 @@ The symbolic phase replaces the reference's quadtree recursion: for each
 stored A block (i,k), find B's row-k run, and enumerate every
 (a_idx, b_idx) pair with a prefix sum plus a searchsorted expansion.
 Only stored-by-stored pairs are enumerated, so ``n_block_pairs`` is the
-reference's block-multiply counter.  The numeric phase runs on the
-row-panel kernel (``"rows"``, 128-wide leaves), the fine kernel
-(``"fine"``, leaves 16/32/64) or gather + `bmm` + `index_add_`
-(``"xla"``, the reference's non-Pallas path, which float64 takes).
+reference's block-multiply counter, and with leaf-occupancy masks
+(``a_leaf_occ``/``b_leaf_occ``) ``n_leaf_multiplies`` counts the
+products at the fine leaf size.  The numeric phase runs on the row-group
+kernel (``"groups"``), the row-panel kernel (``"rows"``), the fine kernel
+(``"fine"``, leaves 16/32/64), the pair-stream kernel (``"pallas"``) or
+gather + `bmm` + `index_add_` (``"xla"``, the reference's non-Pallas
+path, which float64 takes).
 
 Not ported yet, and raising `NotImplementedError`: the norm filter and
-the upper-triangle enumeration (``filter_by_norm``/``syrk_upper``),
-leaf-occupancy counting (``a_leaf_occ``), the aligned accumulate
-(``accum_aligned``), the symmetric-mirror plan, and the ``"groups"`` and
-``"pallas"`` backends.
+the upper-triangle enumeration (``filter_by_norm``/``syrk_upper``), the
+aligned accumulate (``accum_aligned``) and the symmetric-mirror plan.
 """
 
 from __future__ import annotations
@@ -33,7 +34,9 @@ from hierarchical_block_sparse_lib_tpu_torch.core.block_matrix import (
 )
 from hierarchical_block_sparse_lib_tpu_torch.kernels import (
     pallas_gemm_fine,
+    pallas_gemm_groups,
     pallas_gemm_rows,
+    pallas_gemm_stream,
 )
 from hierarchical_block_sparse_lib_tpu_torch.ops import basic
 
@@ -219,19 +222,26 @@ def resolve_backend(
     for CPU tensors):
 
     - float64 data: ``"xla"`` (the kernels accumulate in f32);
-    - `group_caps` given: ``"groups"`` (not ported yet: raises);
+    - `group_caps` given and the row-group kernel takes the leaf:
+      ``"groups"``;
     - `row_caps` given and the row-panel kernel takes the leaf: ``"rows"``;
     - `row_caps` given and the fine kernel takes the leaf: ``"fine"``;
-    - other b % 128 == 0: ``"pallas"``, the stream kernel (not ported
-      yet: raises);
+    - other b % 128 == 0: ``"pallas"``, the pair-stream kernel;
     - anything else: ``"xla"``.
 
     The reference's `pair_cap >= 1024` gate and its SMEM/VMEM gates were
-    measured on or set by a TPU and are not carried over."""
+    measured on or set by a TPU and are not carried over; the row-panel
+    kernel takes b == 128 only, so 256-wide leaves with row caps go to the
+    stream kernel."""
     del nbc_b, pair_cap
     if dtype == torch.float64:
         return "xla"
-    if group_caps is not None and not filter_by_norm and not syrk_upper:
+    if (
+        group_caps is not None
+        and not filter_by_norm
+        and not syrk_upper
+        and pallas_gemm_groups.supported(block_size, dtype)
+    ):
         return "groups"
     if row_caps is not None and pallas_gemm_rows.supported(block_size, dtype):
         return "rows"
@@ -302,6 +312,36 @@ def row_overflow(b: BlockMatrix, out_ids: torch.Tensor, nb_rows_a: int, row_caps
     )
 
 
+def group_overflow(t: pallas_gemm_groups.GroupTables, group_caps) -> torch.Tensor:
+    """True when a row group holds more A blocks, B slab blocks or output
+    slots than the bucketed group caps: the group kernel clamps to them,
+    so an undersized cap would give wrong blocks silently (0-dim bool, no
+    host sync)."""
+    bucket = pallas_gemm_fine._bucket
+    _, a_gm, s_gm, c_gm = group_caps
+    return (
+        ((t.grp_a_start[1:] - t.grp_a_start[:-1]).max() > bucket(a_gm))
+        | (t.slab_cnt.max() > bucket(s_gm))
+        | ((t.grp_c_start[1:] - t.grp_c_start[:-1]).max() > bucket(c_gm))
+    )
+
+
+def leaf_multiplies(a_leaf_occ, b_leaf_occ, a_idx, b_idx, c_id) -> torch.Tensor:
+    """Exact count of leaf products at the fine leaf size (0-dim int32):
+    pair (A_ik, B_kj) multiplies, for each inner leaf index w, the
+    occupied leaves of A's leaf-column w by those of B's leaf-row w.
+    Chunked at `_XLA_PAIR_CHUNK` pairs to bound the [pairs, f] gathers."""
+    ca = a_leaf_occ.sum(1, dtype=torch.int32)  # [capA, f]
+    rb = b_leaf_occ.sum(2, dtype=torch.int32)  # [capB, f]
+    pv = c_id != SENTINEL
+    total = torch.zeros((), dtype=torch.int64, device=c_id.device)
+    for s0 in range(0, a_idx.shape[0], _XLA_PAIR_CHUNK):
+        sl = slice(s0, s0 + _XLA_PAIR_CHUNK)
+        per_pair = (ca[a_idx[sl].long()] * rb[b_idx[sl].long()]).sum(-1)
+        total += torch.where(pv[sl], per_pair, 0).sum()
+    return total.to(torch.int32)
+
+
 def spgemm(
     a: BlockMatrix,
     b: BlockMatrix,
@@ -336,16 +376,24 @@ def spgemm(
     and accum's, and beta*accum is added by one gather-add.  `alpha` and
     `beta` may be numbers or 0-dim tensors (no host sync either way).
 
-    backend: "rows" (row-panel kernel, 128-wide leaves; needs
+    backend: "groups" (row-group kernel, b % 128 == 0; needs `group_caps`
+    from `plan_groups`), "rows" (row-panel kernel, 128-wide leaves; needs
     `row_caps`), "fine" (fine kernel, leaves 16/32/64; needs `row_caps`),
-    "xla" (gather + `bmm`), or "auto" (`resolve_backend`).  precision:
-    "highest" (f32-faithful), "high" (bf16x3 split), "default" (one bf16
-    pass on the kernels); ignored for non-f32 data.
+    "pallas" (pair-stream kernel, b % 128 == 0), "xla" (gather + `bmm`),
+    or "auto" (`resolve_backend`).  On the card an explicit kernel backend
+    that does not take the leaf raises `ValueError`; CPU tensors take each
+    kernel's plain version.  precision: "highest" (f32-faithful), "high"
+    (bf16x3 split; full f32 on the stream kernel, as in the reference),
+    "default" (one bf16 pass on the kernels); ignored for non-f32 data.
+
+    `a_leaf_occ`/`b_leaf_occ` (from ``coarsen(..., track_leaves=True)``)
+    make `n_leaf_multiplies` the exact leaf-product count at the fine
+    leaf size; it is -1 without them.
     """
     if filter_by_norm or syrk_upper:
         raise _not_ported("the norm filter and syrk enumeration", "Queue 1 #6")
-    if a_leaf_occ is not None or b_leaf_occ is not None:
-        raise _not_ported("leaf-occupancy counting", "Queue 1 #2")
+    if (a_leaf_occ is None) != (b_leaf_occ is None):
+        raise ValueError("a_leaf_occ and b_leaf_occ go together")
     if accum_aligned:
         raise _not_ported("the aligned accumulate", "Queue 1 #2")
     del tau
@@ -386,7 +434,10 @@ def spgemm(
     if gemm_cap < pair_cap:
         # Survivors sort before SENTINEL padding.
         a_idx, b_idx, c_id = a_idx[:gemm_cap], b_idx[:gemm_cap], c_id[:gemm_cap]
-    n_leaf = torch.full((), -1, dtype=torch.int32, device=dev)
+    if a_leaf_occ is not None:
+        n_leaf = leaf_multiplies(a_leaf_occ, b_leaf_occ, a_idx, b_idx, c_id)
+    else:
+        n_leaf = torch.full((), -1, dtype=torch.int32, device=dev)
 
     valid_p = c_id != SENTINEL
     pos_acc = None
@@ -423,7 +474,25 @@ def spgemm(
             row_caps=row_caps, group_caps=group_caps,
         )
     acc_dtype = torch.promote_types(a.dtype, torch.float32)
-    if backend in ("rows", "fine"):
+    if backend == "groups":
+        if group_caps is None:
+            raise ValueError("backend='groups' requires group_caps (plan_groups)")
+        if filter_by_norm or syrk_upper:
+            raise ValueError(
+                "backend='groups' supports neither filter_by_norm nor "
+                "syrk_upper; use the rows backend"
+            )
+        g_rows, a_gm, s_gm, c_gm = (int(x) for x in group_caps)
+        tables = pallas_gemm_groups.group_tables(
+            a.ids, b.ids, out_ids_pre, a.nb_rows, b.nb_rows, b.nb_cols, g_rows
+        )
+        out_data = pallas_gemm_groups.groups_spgemm(
+            a.ids, a.data, b.ids, b.data, out_ids_pre,
+            a.nb_rows, b.nb_rows, b.nb_cols, out_cap,
+            g_rows, a_gm, s_gm, c_gm, precision=precision, tables=tables,
+        )
+        rows_over = group_overflow(tables, group_caps)
+    elif backend in ("rows", "fine"):
         if row_caps is None:
             raise ValueError(f"backend={backend!r} requires row_caps (plan_spgemm_ex)")
         kernel = (
@@ -443,12 +512,15 @@ def spgemm(
         )
         rows_over = torch.zeros((), dtype=torch.bool, device=dev)
     elif backend == "pallas":
-        raise _not_ported('the "pallas" stream backend', "Queue 2 #4")
-    elif backend == "groups":
-        raise _not_ported('the "groups" backend', "Queue 2 #5")
+        out_data = pallas_gemm_stream.gather_gemm_accumulate_stream(
+            a.data, b.data, a_idx, b_idx, seg, out_cap, precision=precision
+        )
+        rows_over = torch.zeros((), dtype=torch.bool, device=dev)
     else:
         raise ValueError(f"unknown backend {backend!r}")
-    exact_fill = backend in ("rows", "fine")
+    # The stream kernel writes every slot too, but is held to the
+    # reference's contract, where slots no pair visits are undefined.
+    exact_fill = backend in ("rows", "groups", "fine")
     if not (exact_fill and alpha_is_one_static(alpha) and a.dtype == out_data.dtype):
         # Keep the all-zero padding invariant and apply alpha in one pass.
         slot_valid = out_ids_pre != SENTINEL

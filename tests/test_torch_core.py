@@ -173,6 +173,10 @@ def test_port_imports_no_jax():
         "import hierarchical_block_sparse_lib_tpu_torch, sys; "
         "import hierarchical_block_sparse_lib_tpu_torch.convert; "
         "import hierarchical_block_sparse_lib_tpu_torch.kernels._build; "
+        "import hierarchical_block_sparse_lib_tpu_torch.kernels.pallas_gemm; "
+        "import hierarchical_block_sparse_lib_tpu_torch.kernels.pallas_gemm_groups; "
+        "import hierarchical_block_sparse_lib_tpu_torch.kernels.pallas_gemm_stream; "
+        "import hierarchical_block_sparse_lib_tpu_torch.ops.matmul; "
         "import hierarchical_block_sparse_lib_tpu_torch.utils.generators; "
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules)"
     )

@@ -50,9 +50,11 @@ def test_purify_equals_purify_scan():
     np.testing.assert_allclose(xp.data.numpy(), xs.data.numpy(), rtol=1e-6, atol=1e-6)
     assert [int(s.nnz_blocks) for s in sp] == ss.nnz_blocks.tolist()
     # `purify` takes no row caps: at b=128 its "auto" is the stream
-    # kernel's case, which is not ported yet and says so.
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 #4"):
-        tx.purify(x, STEPS, TAU, **kw)
+    # kernel's backend, which gives the same trajectory.
+    xa, sa = tx.purify(x, STEPS, TAU, **kw)
+    np.testing.assert_array_equal(xa.ids.numpy(), xs.ids.numpy())
+    np.testing.assert_allclose(xa.data.numpy(), xs.data.numpy(), rtol=1e-6, atol=1e-6)
+    assert [int(s.nnz_blocks) for s in sa] == ss.nnz_blocks.tolist()
 
 
 def test_symmetric_variant_raises():

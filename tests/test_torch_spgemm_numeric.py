@@ -133,12 +133,10 @@ def test_float64_takes_the_torch_path():
 
 @pytest.mark.parametrize("kw", [
     dict(filter_by_norm=True), dict(syrk_upper=True), dict(accum_aligned=True),
-    dict(a_leaf_occ=torch.ones(1)), dict(backend="pallas"), dict(backend="groups"),
-    dict(group_caps=(2, 4, 4, 4), row_caps=(8, 8)), dict(row_caps=None),
 ])
 def test_unported_paths_raise(kw):
     """Nothing falls back quietly: every unported option names its
-    ROADMAP item (b=128 with no row caps is the stream kernel's case)."""
+    ROADMAP item."""
     _, xa = matrix_pair(2, 2, 128, 1.0, 41)
     kw = dict(dict(row_caps=(8, 8)), **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
