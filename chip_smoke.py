@@ -58,7 +58,15 @@ final line):
     without row caps, on the pair-stream kernel: counters, a repeated
     call bitwise equal, the product against the port's float64 path; the
     v1 call on the same pairs; both against their plain versions, with
-    times and a torch.profiler breakdown of the planned product.
+    times and a torch.profiler breakdown of the planned product;
+14. the fine kernel's micro-benchmarks: the four micro kernels (micro,
+    e2, e3, e12) against their plain versions at small shapes (every
+    mode, recipe, tier and do_adds), then the port's three measurement
+    scripts at their own shapes (scripts/micro_fine_kernel.py,
+    micro_fine_kernel2.py: each kernel against its plain version, its
+    times, bound and library time, and the torch-op probes; the micro
+    kernels' launches counted around them), and scripts/
+    profile_fine_pieces.py: the planned B2 multiply in parts.
 
 Prints the card line and one JSON line of per-kernel results, then, as
 the last line, ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -69,12 +77,19 @@ from __future__ import annotations
 
 import contextlib
 import json
-import statistics
 import subprocess
 import sys
 import time
 
 import numpy as np
+
+from hierarchical_block_sparse_lib_tpu_torch.utils.profiling import (
+    alternate,
+    bound,
+    card_line,
+    cuda_time_ms,
+    in_turns,
+)
 
 _CSRC = "hierarchical_block_sparse_lib_tpu_torch/kernels/csrc/"
 _TPU = "hierarchical_block_sparse_lib_tpu/kernels/"
@@ -88,7 +103,12 @@ KERNELS = {
         _CSRC + "gemm_stream.cu", _TPU + "pallas_gemm_stream.py:189"),
     "groups_spgemm": (_CSRC + "gemm_groups.cu", _TPU + "pallas_gemm_groups.py:449"),
     "gather_gemm_accumulate": (_CSRC + "gemm_stream.cu", _TPU + "pallas_gemm.py:161"),
+    "micro": (_CSRC + "micro_fine.cu", "scripts/micro_fine_kernel.py:53"),
+    "e2": (_CSRC + "micro_fine.cu", "scripts/micro_fine_kernel2.py:45"),
+    "e3": (_CSRC + "micro_fine.cu", "scripts/micro_fine_kernel2.py:73"),
+    "e12": (_CSRC + "micro_fine.cu", "scripts/micro_fine_kernel2.py:107"),
 }
+MICRO_KERNELS = ("micro", "e2", "e3", "e12")
 B3_KERNELS = ("rows_spgemm", "norms_and_keep", "block_frob_squared")
 TOL = {"highest": 1e-5, "high": 1e-5, "default": 1e-4}
 # Row-panel kernel vs plain version, relative to max|C|: both take the
@@ -110,24 +130,7 @@ B1_PLAN = dict(caps=(16, 47, 50, 77), slab_blocks=100, pairs=278)
 B1_COUNTS = (278, 154, 20436)
 # B2-tile128's (block pairs, output blocks), plan_spgemm in the JAX package.
 B2T_COUNTS = (5156, 4415)
-# H100 SXM data sheet at 700 W: FP32 outside the tensor cores, HBM3.
-FP32_FLOPS = 67e12
-HBM_BYTES = 3.35e12
 DEVICE = "cuda"
-
-
-def bound(flops: float, nbytes: float):
-    """(ms, "operations" or "bytes"): the least time the card could take."""
-    t_ops, t_bytes = flops / FP32_FLOPS, nbytes / HBM_BYTES
-    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def block_matrix(ids, nbr, nbc, b, rng):
@@ -238,24 +241,6 @@ def small_shapes():
             err = check_close("canonical", fine_spgemm(*cargs, **kw),
                               fine_spgemm_reference(*cargs, **kw), TOL["highest"])
             print(f"  b=32 canonical layout max_abs_err={err:.3e}")
-
-
-def cuda_time_ms(fn, warmup=2, reps=7):
-    """Median of `reps` CUDA-event timings of fn(), after `warmup` calls."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        stop.record()
-        stop.synchronize()
-        times.append(start.elapsed_time(stop))
-    return statistics.median(times), times
 
 
 def rel_err(got, want) -> float:
@@ -544,6 +529,7 @@ def b3_input():
 def wrappers():
     """Kernel name -> the wrapper that counts its launches."""
     from hierarchical_block_sparse_lib_tpu_torch.kernels import (
+        micro_fine,
         pallas_gemm,
         pallas_gemm_fine,
         pallas_gemm_groups,
@@ -553,6 +539,7 @@ def wrappers():
     )
 
     return {
+        **{name: getattr(micro_fine, name) for name in MICRO_KERNELS},
         "fine_spgemm": pallas_gemm_fine.fine_spgemm,
         "rows_spgemm": pallas_gemm_rows.rows_spgemm,
         "block_frob_squared": pallas_norms.block_frob_squared,
@@ -666,16 +653,6 @@ def plain_kernels():
         yield
     finally:
         rows.rows_spgemm, pn.norms_and_keep, pn.block_frob_squared = saved
-
-
-def alternate(kernel_fn, plain_fn):
-    """Median CUDA-event times in turns plain, kernel, kernel, plain:
-    (kernel ms, plain ms, the four medians)."""
-    p1, _ = cuda_time_ms(plain_fn)
-    k1, _ = cuda_time_ms(kernel_fn)
-    k2, _ = cuda_time_ms(kernel_fn)
-    p2, _ = cuda_time_ms(plain_fn)
-    return statistics.median([k1, k2]), statistics.median([p1, p2]), (k1, k2, p1, p2)
 
 
 def b3_kernels_and_times(A, prof, plans, card):
@@ -895,14 +872,6 @@ def purify_b3(A, prof, scan):
     return got["gather_gemm_accumulate_stream"]
 
 
-def in_turns(fns: dict):
-    """Median CUDA-event times of each fn, measured in order and then in
-    reverse order: name -> (first, second) medians in ms."""
-    first = {name: cuda_time_ms(fn)[0] for name, fn in fns.items()}
-    second = {name: cuda_time_ms(fn)[0] for name, fn in reversed(fns.items())}
-    return {name: (first[name], second[name]) for name in fns}
-
-
 def b1_input():
     """bench.py's B1 (bench.py:700-721): banded 4096^2, bandwidth 64,
     assembled at leaf 16 and coarsened x8 with leaf tracking.  Returns
@@ -1101,6 +1070,129 @@ def b2_tile128(card):
     return entries, got["gather_gemm_accumulate_stream"], v1["gather_gemm_accumulate"]
 
 
+def small_micro():
+    """Phase 14: the four micro kernels vs their plain versions at small
+    shapes (every mode and tier of micro, a ragged wide panel among them;
+    the three e2 recipes; e3 with indices past the last slot; e12 at both
+    tiers with and without the adds), the [8, 128] output and the whole
+    accumulator both compared."""
+    import torch
+
+    from hierarchical_block_sparse_lib_tpu_torch.kernels import micro_fine as mf
+    from hierarchical_block_sparse_lib_tpu_torch.scripts.micro_fine_kernel import TOL as MICRO_TOL
+
+    rng = np.random.default_rng(14)
+
+    def normal(shape, scale=0.1):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to(DEVICE)
+
+    def check(name, got, want, tol):
+        torch.cuda.synchronize()
+        err = max(rel_err(g, w) for g, w in zip(got, want))
+        if not err <= tol:
+            raise AssertionError(f"{name}: kernel vs plain rel err {err:.3e} > {tol}")
+        print(f"  {name:34s} kernel-vs-plain rel err={err:.3e} (out and acc; tol {tol})")
+
+    for mode, la, lb in (("wide", 300, 200), ("wide", 256, 128), ("quad", 256, 384),
+                         ("flatten", 128, 128)):
+        at, bp = normal((32, la)), normal((32, lb))
+        for prec in ("highest", "default"):
+            check(f"micro {mode} {la}x{lb} {prec}", mf.micro(at, bp, mode, prec, reps=5),
+                  mf.micro_reference(at, bp, mode, prec, reps=5), MICRO_TOL[prec])
+    x = normal((32, 32), 1.0)
+    for variant in mf.VARIANTS:
+        if not torch.equal(mf.e2(x, variant), x.reshape(8, 128)):
+            raise AssertionError(f"e2 {variant} differs from x.reshape(8, 128)")
+    print(f"  e2 {', '.join(mf.VARIANTS)}: each equal to x.reshape(8, 128) bitwise")
+    idx = torch.from_numpy(rng.integers(0, 520, 300).astype(np.int32)).to(DEVICE)
+    v = normal((8, 128), 1.0)
+    got, want = mf.e3(idx, v), mf.e3_reference(idx, v)
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError("e3 differs from its plain version")
+    print("  e3 300 adds (indices up to 519, past the last slot 511): equal to plain bitwise")
+    a_wide, panel = normal((5, 32, 128)), normal((8 * 26, 128))
+    idx12 = torch.from_numpy(rng.integers(0, 512, 5 * 26).astype(np.int32)).to(DEVICE)
+    for prec in ("highest", "default"):
+        for do_adds in (True, False):
+            check(f"e12 RA=5 {prec} adds={do_adds}",
+                  mf.e12(a_wide, panel, idx12, prec, do_adds),
+                  mf.e12_reference(a_wide, panel, idx12, prec, do_adds), MICRO_TOL[prec])
+
+
+def micro_path(card, fine_ns_per_pair):
+    """Phase 14: the three measurement scripts at their own shapes (each
+    kernel against its plain version there, its times, bound and library
+    time), with the micro kernels' launch counts read around the two micro
+    scripts; then the profile of the B2 multiply in parts."""
+    import torch
+
+    from hierarchical_block_sparse_lib_tpu_torch.scripts import micro_fine_kernel as m1
+    from hierarchical_block_sparse_lib_tpu_torch.scripts import micro_fine_kernel2 as m2
+    from hierarchical_block_sparse_lib_tpu_torch.scripts import profile_fine_pieces as pp
+
+    torch.cuda.synchronize()
+    reset_counts()
+    recs = {**m1.main(DEVICE), **m2.main(DEVICE)}
+    torch.cuda.synchronize()
+    got = counts(MICRO_KERNELS)
+    if min(got.values()) < 1:
+        raise AssertionError(f"a micro kernel never launched on the scripts' path: {got}")
+    print(f"[micro] {card}: the scripts at their shapes, CUDA events, median of 7 after 2 "
+          f"warm-up calls, kernel and plain in turns; launches {got}")
+    for name, r in recs.items():
+        if "four" not in r:  # a torch op
+            print(f"[micro]   {name:24s} {r['ms']:.4f} ms, {r['nbytes'] / r['ms'] / 1e6:.0f} GB/s "
+                  f"(bound {r['bound_ms']:.4f} ms)")
+            continue
+        k1, k2, p1, p2 = r["four"]
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        print(f"[micro]   {name:24s} kernel {k1:.4f} / {k2:.4f} ms  plain {p1:.4f} / {p2:.4f} ms"
+              f"  library {lib}  bound {r['bound_ms']:.5f} ms ({r['bound_by']})  "
+              f"rel err {r['rel_err']:.2e}")
+    sizes = m2.Sizes()
+    n_leaf = sizes.RA * sizes.NBROW
+    leaf_ns = recs["E12 highest adds=True"]["ms"] / n_leaf * 1e6
+    print(f"[micro] e12 (highest, adds): {leaf_ns:.2f} ns per 32x32 leaf product per call; "
+          f"the fine kernel at B2 (phase 5): {fine_ns_per_pair:.2f} ns per pair")
+    # The wrapper times above include the host's launches; the device time
+    # of each kernel alone, at the same shapes.
+    from hierarchical_block_sparse_lib_tpu_torch.kernels import micro_fine as mf
+
+    rng = np.random.default_rng(0)
+
+    def normal(*shape):
+        return torch.from_numpy((rng.standard_normal(shape) * 0.1).astype(np.float32)).to(DEVICE)
+
+    at, bp = normal(32, m1.Sizes().LA), normal(32, m1.Sizes().LA)
+    a_wide, panel = normal(sizes.RA, 32, 128), normal(8 * sizes.NBROW, 128)
+    idx = torch.from_numpy(rng.integers(0, 500, n_leaf).astype(np.int32)).to(DEVICE)
+    for label, run, kernel, n in (
+        ("micro wide highest", lambda: mf.micro(at, bp, "wide"), "micro_dot", None),
+        ("micro wide default", lambda: mf.micro(at, bp, "wide", "default"), "micro_dot", None),
+        ("e3 R3=4096", lambda: mf.e3(idx[:sizes.R3], panel[:8]), "e3_kernel", None),
+        ("e12 highest adds", lambda: mf.e12(a_wide, panel, idx), "e12_kernel", n_leaf),
+        ("e12 default adds", lambda: mf.e12(a_wide, panel, idx, "default"), "e12_kernel", n_leaf),
+        ("e12 highest no adds", lambda: mf.e12(a_wide, panel, idx, do_adds=False),
+         "e12_kernel", n_leaf),
+    ):
+        dev = device_profile(label, run, 10, card, top=3)
+        us = sum(t for k, t in dev.items() if kernel in k)
+        per = f", {us * 1e3 / n:.2f} ns per leaf product" if n and us else ""
+        print(f"[micro] {label}: {kernel} {us:.1f} us of device time per call{per}")
+    parts = pp.main(DEVICE)
+    print(f"[B2 parts] {card}: " + ", ".join(
+        f"{k} {v[0]:.4f} ms (spread {v[1]:.4f})" for k, v in parts.items()
+        if isinstance(v, tuple)) + f"; {parts['pairs']} pairs")
+    picks = {"micro": "E1a wide highest", "e2": "E2x reshape", "e3": "E3",
+             "e12": "E12 highest adds=True"}
+    entries = {k: dict(max_abs_err=recs[n]["max_abs_err"], ms=recs[n]["ms"],
+                       plain_ms=recs[n]["plain_ms"], library_ms=recs[n]["library_ms"],
+                       bound=(recs[n]["bound_ms"], recs[n]["bound_by"]))
+               for k, n in picks.items()}
+    return entries, got
+
+
 def main() -> int:
     import torch
 
@@ -1125,7 +1217,8 @@ def main() -> int:
 
     # Phase 2: build, one nvcc per source, all started together.
     t0 = time.perf_counter()
-    _build.load_all(["gemm_fine", "gemm_rows", "norms", "gemm_stream", "gemm_groups"])
+    _build.load_all(["gemm_fine", "gemm_rows", "norms", "gemm_stream", "gemm_groups",
+                     "micro_fine"])
     print(f"[build] kernels ready in {time.perf_counter() - t0:.1f} s")
     for name, (secs, log) in sorted(_build.build_logs.items()):
         print(f"[build] nvcc {name}: {secs:.1f} s")
@@ -1205,6 +1298,7 @@ def main() -> int:
     print(f"[time]   plain  {four[2]:.3f} / {four[3]:.3f} ms  "
           f"-> {flops / fine_plain_ms / 1e6:.1f} GFLOP/s")
     fine_bound = bound(flops, 2 * Af.data.numel() * 4 + oc * b * b * 4)
+    fine_ns_per_pair = fine_ms / pc * 1e6
     del Af, plan, A
     torch.cuda.empty_cache()
 
@@ -1231,6 +1325,13 @@ def main() -> int:
     entries["groups_spgemm"], b1_launches = b1_path(card)
     stream_entries, b2t_launches, v1_launches = b2_tile128(card)
     entries.update(stream_entries)
+
+    # Phase 14: the micro kernels at small shapes, then the measurement
+    # scripts at their shapes and the B2 multiply in parts.
+    print("[small] micro kernels vs plain versions")
+    small_micro()
+    micro_entries, micro_launches = micro_path(card, fine_ns_per_pair)
+    entries.update(micro_entries)
     print(f"[mem] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     entries["fine_spgemm"] = dict(
@@ -1240,7 +1341,7 @@ def main() -> int:
     launches = dict(
         b3_launches, fine_spgemm=fine_launches, groups_spgemm=b1_launches,
         gather_gemm_accumulate_stream=b2t_launches + purify_launches,
-        gather_gemm_accumulate=v1_launches,
+        gather_gemm_accumulate=v1_launches, **micro_launches,
     )
     print(f"[launches] gather_gemm_accumulate_stream: {b2t_launches} on B2-tile128 + "
           f"{purify_launches} in purify on B3")

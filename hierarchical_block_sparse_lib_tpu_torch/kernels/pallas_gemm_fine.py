@@ -192,8 +192,24 @@ def fine_spgemm(
     ):
         _check_index(name, t, n, device)
     b, _, precision, at, bt = _operands(a_data, b_data, block_size, precision, alpha)
+    out = launch(out_ids, tables, at, bt, out_cap, nbr, nbc, b_row_max, precision)
+    return _output(out, b, out_layout)
+
+
+fine_spgemm.launches = 0
+
+
+def launch(out_ids, tables, at, bt, out_cap: int, nbr: int, nbc: int,
+           b_row_max: int, precision: str) -> torch.Tensor:
+    """The kernel alone, on CUDA operands made by `_operands` (`at`, `bt`,
+    with `precision` as it resolved) and the row tables of
+    `build_tables`: the C^T blocks ``[out_cap, b, b]`` f32.  Counts in
+    `fine_spgemm.launches`."""
+    a_row_start, a_col, b_row_start, b_col, _, _ = tables
+    b = at.shape[-1]
     if at.data_ptr() % 16 or bt.data_ptr() % 16:
         raise ValueError("fine_spgemm needs 16-byte aligned payloads")
+    device = at.device
     out = torch.empty((out_cap, b, b), dtype=torch.float32, device=device)
     lib = _kernel_lib()
     with torch.cuda.device(device):
@@ -209,10 +225,7 @@ def fine_spgemm(
             f"fine_spgemm launch failed: {lib.hbsm_cuda_error_string(err).decode()}"
         )
     fine_spgemm.launches += 1
-    return _output(out, b, out_layout)
-
-
-fine_spgemm.launches = 0
+    return out
 
 
 @contextlib.contextmanager

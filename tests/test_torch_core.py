@@ -169,15 +169,30 @@ def test_norms_and_truncate_match_jax():
 
 
 def test_port_imports_no_jax():
-    code = (
-        "import hierarchical_block_sparse_lib_tpu_torch, sys; "
-        "import hierarchical_block_sparse_lib_tpu_torch.convert; "
-        "import hierarchical_block_sparse_lib_tpu_torch.kernels._build; "
-        "import hierarchical_block_sparse_lib_tpu_torch.kernels.pallas_gemm; "
-        "import hierarchical_block_sparse_lib_tpu_torch.kernels.pallas_gemm_groups; "
-        "import hierarchical_block_sparse_lib_tpu_torch.kernels.pallas_gemm_stream; "
-        "import hierarchical_block_sparse_lib_tpu_torch.ops.matmul; "
-        "import hierarchical_block_sparse_lib_tpu_torch.utils.generators; "
-        "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules)"
-    )
-    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
+    """Every module of the port (found by pkgutil.walk_packages, its scripts
+    included) and chip_smoke.py import neither jax nor the JAX package;
+    chip_smoke.py's imports inside functions are read from its source."""
+    code = """
+import ast, importlib, pkgutil, sys
+import hierarchical_block_sparse_lib_tpu_torch as port
+names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+FORBIDDEN = ("jax", "jaxlib", "hierarchical_block_sparse_lib_tpu")
+bad = [m for m in sys.modules if m.split(".")[0] in FORBIDDEN]
+assert not bad, bad
+tree = ast.parse(open(chip_smoke.__file__).read())
+mods = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+mods += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)]
+assert not [m for m in mods if m.split(".")[0] in FORBIDDEN], mods
+print(" ".join(names))
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120,
+                         capture_output=True, text=True).stdout.split()
+    pkg = "hierarchical_block_sparse_lib_tpu_torch."
+    for name in ("models.purification", "kernels.pallas_gemm_fine", "kernels.pallas_gemm_rows",
+                 "kernels.pallas_norms", "kernels.micro_fine", "ops.repack",
+                 "scripts.micro_fine_kernel", "scripts.micro_fine_kernel2",
+                 "scripts.profile_fine_pieces", "utils.profiling"):
+        assert pkg + name in out, name

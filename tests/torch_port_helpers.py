@@ -204,3 +204,56 @@ def check_rows_spgemm(b, precision, option=None, nb=(5, 7, 4)):
         ).numpy()
         assert np.abs(full - got).max() > 1e-3 * scale
     return got, want
+
+
+# The JAX micro-benchmark scripts turn on a persistent compilation cache
+# when they are imported (scripts/micro_fine_kernel.py:29-31).
+JAX_CACHE_SETTINGS = (
+    "jax_compilation_cache_dir",
+    "jax_persistent_cache_min_compile_time_secs",
+    "jax_persistent_cache_min_entry_size_bytes",
+)
+
+
+def import_jax_script(name: str):
+    """Import ``scripts/<name>.py`` (a JAX script) and give JAX's
+    compilation-cache settings back as they were before the import."""
+    import importlib
+    import os
+    import sys
+
+    import jax
+
+    saved = {k: getattr(jax.config, k) for k in JAX_CACHE_SETTINGS}
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "scripts")
+    sys.path.insert(0, path)
+    try:
+        return importlib.import_module(name)
+    finally:
+        sys.path.remove(path)
+        for k, v in saved.items():
+            jax.config.update(k, v)
+
+
+def interpret_zero():
+    """TPU interpret mode with scratch memory zeroed: the micro scripts'
+    kernels read scratch they never initialise (`micro`'s accumulator)."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    return pltpu.force_tpu_interpret_mode(pltpu.InterpretParams(uninitialized_memory="zero"))
+
+
+def bf16_rounded(x: np.ndarray) -> np.ndarray:
+    """x rounded to bf16 (to nearest even) and back to f32.  JAX's
+    interpret mode takes "default" products in f32; the TPU's matrix unit
+    and the port round the operands to bf16 first, so JAX is handed them
+    rounded."""
+    return torch.from_numpy(np.ascontiguousarray(x)).bfloat16().float().numpy()
+
+
+def rel_to_max(got, want) -> float:
+    """max|got - want| / max|want| (the difference alone when want is 0)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    scale = np.abs(want).max()
+    diff = np.abs(got - want).max()
+    return float(diff / scale) if scale else float(diff)
