@@ -11,8 +11,12 @@ final line):
    per source, all started together;
 3. each kernel vs its plain PyTorch version at small shapes: the fine
    kernel at b in {16, 32, 64} x the three precision tiers (rectangular
-   alpha != 1 operands with empty rows, the canonical layout, the zero
-   tail); the row-panel kernel at b=128 x the three tiers, bf16 data, the
+   alpha != 1 operands with empty rows, the zero tail), then its edges at
+   each leaf x tier x both layouts x the B row seen whole and capped at
+   8: an A row longer than a shared-memory k-chunk, a C row cut by a
+   chunk boundary, an empty A row with output slots that no product
+   reaches, an empty C row, slots with one and with many products, a
+   SENTINEL tail; the row-panel kernel at b=128 x the three tiers, bf16 data, the
    SpAMM skip, triu and the aligned accumulator, with union slots that no
    product reaches and a tail; both norm kernels, f32 and bf16; the
    pair-stream kernel at b in {128, 256} x the three tiers, bf16, a
@@ -65,10 +69,14 @@ final line):
     scripts at their own shapes (scripts/micro_fine_kernel.py,
     micro_fine_kernel2.py: each kernel against its plain version, its
     times, bound and library time, and the torch-op probes; the micro
-    kernels' launches counted around them), and scripts/
-    profile_fine_pieces.py: the planned B2 multiply in parts.
+    kernels' launches counted around them), scripts/
+    profile_fine_pieces.py: the planned B2 multiply in parts, and scripts/
+    time_fine_kernel.py: the fine kernel alone at B2's structure for each
+    leaf and tier, and its launch sizes swept.
 
-Prints the card line and one JSON line of per-kernel results, then, as
+Phase 2 also prints each fine-kernel launch's k-chunk, shared memory,
+occupancy, registers and spills at B2's B row cap.  Prints the card line
+and one JSON line of per-kernel results, then, as
 the last line, ``{"ok": true, "device": {...}}``.  Exits non-zero
 without a CUDA device.
 """
@@ -235,12 +243,77 @@ def small_shapes():
                   f"  vs f64 oracle rel={rel:.3e}")
             if prec == "highest" and rel > 1e-5:
                 raise AssertionError(f"b={b}: rel err {rel:.3e} vs f64 oracle")
-        if b == 32:  # canonical payloads in and out
-            kw = dict(precision="highest", alpha=-0.5, tables=plan.tables)
-            cargs = (A.ids, A.data, B.ids, B.data) + args[4:]
-            err = check_close("canonical", fine_spgemm(*cargs, **kw),
-                              fine_spgemm_reference(*cargs, **kw), TOL["highest"])
-            print(f"  b=32 canonical layout max_abs_err={err:.3e}")
+        small_fine_edges(b)
+
+
+def small_fine_edges(b):
+    """Phase 3: the fine kernel's edges against its plain version at leaf
+    b, every tier, both layouts, with the B rows seen whole and capped at
+    8: a 4 x 80 A whose row 0 holds all 80 entries (more than one
+    k-chunk of staged A blocks, and a C row of more than CHUNK_SLOTS
+    slots, so a chunk boundary inside it), row 1 empty (with two output
+    slots that no product reaches), row 2 one entry (slots with one
+    product), row 3 only entries whose B rows are empty (an empty C row),
+    and a tail of five SENTINEL slots."""
+    import torch
+
+    import hierarchical_block_sparse_lib_tpu_torch as hbsm
+    from hierarchical_block_sparse_lib_tpu_torch.kernels import pallas_gemm_fine as pf
+    from hierarchical_block_sparse_lib_tpu_torch.ops.spgemm import plan_spgemm_ex
+
+    nbr, nbrB, nbc = 4, 80, 160
+    rng = np.random.default_rng(100 + b)
+    b_ids = np.sort(rng.choice(nbrB * nbc, nbrB * nbc // 10, replace=False))
+    b_ids = b_ids[b_ids // nbc < 70]  # B rows 70..79 empty
+    a_ids = list(range(80)) + [2 * nbrB + 5] + [3 * nbrB + k for k in (70, 75, 79)]
+    A = block_matrix(a_ids, nbr, nbrB, b, rng)
+    B = block_matrix(b_ids, nbrB, nbc, b, rng)
+    pc, oc, mbr, mcr = plan_spgemm_ex(A, B)
+    support = hbsm.make_fine_plan(A, B, pc, oc, (mbr, mcr)).out_ids
+    extra = torch.tensor([nbc + 3, nbc + 50], dtype=torch.int32, device=DEVICE)
+    used = torch.sort(torch.cat([support, extra])).values
+    out_ids = torch.cat([used, torch.full((5,), hbsm.SENTINEL, dtype=torch.int32,
+                                          device=DEVICE)])
+    out_cap = out_ids.shape[0]
+    tables = pf.fine_tables(A.ids, B.ids, out_ids, nbr, nbrB, nbc, b)
+    row0 = int(tables[4][1])
+    if row0 <= pf.CHUNK_SLOTS or int(tables[4][4] - tables[4][3]) != 0:
+        raise AssertionError(f"edge case: C row 0 has {row0} slots, row 3 not empty")
+    a_idx, b_idx = pf.expand_pairs(A.ids, tables[1], tables[2], mbr)
+    c_id = (A.ids[a_idx].long() // nbrB) * nbc + tables[3][b_idx].long()
+    per_slot = torch.bincount(pf.pair_slots(out_ids, c_id.to(torch.int32), out_cap),
+                              minlength=out_cap + 1)[:oc + 2]
+    if not (per_slot == 0).any() or not (per_slot == 1).any() or per_slot.max() < 5:
+        raise AssertionError(f"edge case: products per slot {per_slot.tolist()}")
+    zero_slots = torch.cat([(per_slot == 0).nonzero().flatten(),
+                            torch.arange(oc + 2, out_cap, device=DEVICE)])
+    data = {"canonical": (A.data, B.data),
+            "flat": (hbsm.fine_pack(A).data, hbsm.fine_pack(B).data)}
+    for prec in ("highest", "high", "default"):
+        kc = pf.launch_config(b, prec, mbr)["kc"]
+        if kc >= 80:
+            raise AssertionError(f"b={b} {prec}: k-chunk {kc} holds A's row 0 whole")
+        for layout, (ad, bd) in data.items():
+            for cap in (mbr, 1):
+                args = (A.ids, ad, B.ids, bd, out_ids, nbr, nbrB, nbc, out_cap, cap, mcr)
+                kw = dict(precision=prec, block_size=b, out_layout=layout, alpha=-0.5)
+                got = pf.fine_spgemm(*args, **kw, tables=tables)
+                want = pf.fine_spgemm_reference(*args, **kw)
+                torch.cuda.synchronize()
+                # Relative to max|C|: up to 17 products per slot, and the
+                # tensor cores' f32 sums ("high", "default") round otherwise
+                # than FFMA, so a small element of a long sum may differ by
+                # more than 1e-5 of itself.
+                err = rel_err(got, want)
+                if not err <= TOL[prec]:
+                    raise AssertionError(f"edges b={b} {prec} {layout} cap {cap}: "
+                                         f"rel err {err:.3e} > {TOL[prec]}")
+                if torch.count_nonzero(got[zero_slots]) != 0:
+                    raise AssertionError(f"b={b} {prec} {layout}: a slot with no product")
+                print(f"  edges b={b:2d} {prec:8s} {layout:9s} B row cap "
+                      f"{'whole' if cap == mbr else 8:5}: kernel-vs-plain rel err="
+                      f"{err:.3e} (k-chunk {kc}, C row 0 {row0} slots, products per slot "
+                      f"0..{int(per_slot.max())})")
 
 
 def rel_err(got, want) -> float:
@@ -1184,7 +1257,22 @@ def micro_path(card, fine_ns_per_pair):
     print(f"[B2 parts] {card}: " + ", ".join(
         f"{k} {v[0]:.4f} ms (spread {v[1]:.4f})" for k, v in parts.items()
         if isinstance(v, tuple)) + f"; {parts['pairs']} pairs")
-    picks = {"micro": "E1a wide highest", "e2": "E2x reshape", "e3": "E3",
+    from hierarchical_block_sparse_lib_tpu_torch.scripts import time_fine_kernel as tf
+
+    print(f"[fine] {card}: the kernel alone at B2's structure per leaf and tier "
+          f"(scripts/time_fine_kernel.py, CUDA events, median of 7 after 2 warm-ups)")
+    for key, r in tf.main(DEVICE).items():
+        if key[0] == "sweep":
+            _, leaf, tier, ctas, cs, n_win = key
+            print(f"[fine]   sweep b={leaf} {tier}: {cs} slots per block, {n_win} column "
+                  f"windows, sized for {ctas} per SM: "
+                  + ("does not fit" if r is None else f"{r:.4f} ms"))
+            continue
+        (ms_b, by), ms = r["bound"], r["ms"]
+        print(f"[fine]   b={key[0]:2d} {key[1]:8s} {ms:.4f} ms (spread {r['spread']:.4f}), "
+              f"{r['pairs']} products, {r['ns_per_product_per_sm']:.1f} ns per product per "
+              f"SM; bound {ms_b:.4f} ms ({by}), {100 * ms_b / ms:.1f}% of it; {r['config']}")
+    picks ={"micro": "E1a wide highest", "e2": "E2x reshape", "e3": "E3",
              "e12": "E12 highest adds=True"}
     entries = {k: dict(max_abs_err=recs[n]["max_abs_err"], ms=recs[n]["ms"],
                        plain_ms=recs[n]["plain_ms"], library_ms=recs[n]["library_ms"],
@@ -1225,6 +1313,11 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  {line.strip()}")
+    from hierarchical_block_sparse_lib_tpu_torch.kernels.pallas_gemm_fine import launch_config
+
+    for b in (16, 32, 64):  # at B2's B row cap, 44
+        for prec in ("highest", "high", "default"):
+            print(f"[build] fine_spgemm b={b} {prec}: {launch_config(b, prec, 44)}")
 
     # Phase 3: kernels vs plain versions at small shapes.
     print("[small] kernel vs plain version")
@@ -1268,7 +1361,8 @@ def main() -> int:
         (hbsm.to_dense(D).double() - exact).abs().max() / exact.abs().max()
     )
     del dA, exact, D
-    print(f"[B2] chain vs f64 oracle: max rel err {rel:.3e}")
+    print(f"[B2] chain vs f64 oracle: max rel err {rel:.3e} "
+          f"(a block per slot, the design replaced: 1.6e-7)")
     if rel > 1e-5:
         raise AssertionError(f"B2 chain rel err {rel:.3e} > 1e-5")
 

@@ -10,8 +10,11 @@ any rounding.  Payloads come in and go out either canonical
 ``[cap, b, b]`` or transposed-flat ``[cap, b*b/128, 128]`` (each block
 stored as ``flat(block^T)``, ops/fine.py).  The kernel works on the
 transposed blocks: it reads A^T and B^T and writes C^T = B^T (alpha A)^T,
-which is the flat layout's memory as it is.  See the kernel source for
-what bounds it on the card and what its design does about that.
+which is the flat layout's memory as it is.  One thread block takes a
+chunk of a C block-row's slots (`slot_chunks`, at most `CHUNK_SLOTS`),
+so the row's A blocks are staged once for all of them.  See the kernel
+source for what bounds it on the card and what its design does about
+that.
 
 A CPU tensor takes `fine_spgemm_reference`; a CUDA tensor launches the
 kernel or raises.  `fine_spgemm.launches` counts kernel launches.
@@ -28,6 +31,16 @@ from hierarchical_block_sparse_lib_tpu_torch.core.block_matrix import SENTINEL
 
 _PRECISIONS = {"highest": 0, "high": 1, "default": 2}
 _G8 = 8  # row-cap bucket, as the reference's
+# Output slots per thread block of the kernel (a chunk of one C row), and
+# the resident blocks per SM its shared memory is sized for where not one
+# (scripts/time_fine_kernel.py measures both).
+CHUNK_SLOTS = 128
+CTAS_PER_SM = {(16, "high"): 2}
+# B payload bytes per column window of the kernel's schedule (L2: 50 MB),
+# and the widest window: the kernel marks each A entry's B row as a bitmap
+# of the columns a chunk spans (kSpan in gemm_fine.cu).
+B_PANEL_BYTES = 16 << 20
+SPAN = 256
 
 
 def _bucket(n: int) -> int:
@@ -62,6 +75,61 @@ def build_tables(a_ids, b_ids, out_ids, nbr: int, nbrB: int, nbc: int):
     b_row_start, b_col = row_table(b_ids, nbrB, nbc)
     c_row_start, ccol = row_table(out_ids, nbr, nbc)
     return (a_row_start, a_col, b_row_start, b_col, c_row_start, ccol)
+
+
+def col_window(nbc: int, cap_b: int, b: int) -> int:
+    """Block columns per window of `slot_chunks`: the fewest windows that
+    keep each window's share of B's f32 payload (capacity, not nnz: no host
+    read) under `B_PANEL_BYTES`, so the B blocks that one window's products
+    read stay in L2 while every C row passes over it."""
+    n_win = max(1, -(-cap_b * b * b * 4 // B_PANEL_BYTES))
+    return -(-nbc // n_win)
+
+
+def slot_chunks(out_ids, c_row_start, nbc: int, chunk_slots: int = CHUNK_SLOTS,
+                window: int | None = None):
+    """The kernel's work units: int32 ``[2, n]``, thread block c taking
+    slots ``[chunks[0, c], chunks[1, c])``.  The output columns are cut
+    into windows of `window` block columns (all of them by default), at
+    most `SPAN`; each C row's slots in a window are cut into chunks of at
+    most `chunk_slots`, so a chunk stays in one row and spans fewer than
+    `SPAN` columns.  Chunks run window by
+    window, rows ascending in each, then the SENTINEL tail's.  ``n =
+    nbr * n_windows + 1 + ceil(out_cap / chunk_slots)`` bounds the count
+    for any structure; the unused chunks at the end are empty.  Built on
+    the ids' device with no host read."""
+    dev = out_ids.device
+    out_cap = out_ids.shape[0]
+    nbr = c_row_start.shape[0] - 1
+    window = min(nbc if window is None else window, SPAN)
+    n_win = -(-nbc // window)
+    # Each (window, row) piece's first slot: the first id at or past its
+    # first column; the tail's from the first SENTINEL.
+    first_col = torch.clamp(torch.arange(n_win + 1, device=dev) * window, max=nbc)
+    keys = torch.arange(nbr, device=dev)[None, :] * nbc + first_col[:, None]
+    edges = torch.searchsorted(out_ids, keys.to(torch.int32).contiguous()).long()
+    tail = c_row_start[nbr:].long()
+    starts = torch.cat([edges[:-1].flatten(), tail])
+    ends = torch.cat([edges[1:].flatten(), torch.full_like(tail, out_cap)])
+    pieces = (ends - starts + chunk_slots - 1) // chunk_slots
+    last = torch.cumsum(pieces, 0)  # one past each piece's last chunk
+    cap = nbr * n_win + 1 + -(-out_cap // chunk_slots)
+    c = torch.arange(cap, device=dev)
+    k = torch.searchsorted(last, c, right=True)
+    kc = k.clamp(max=starts.shape[0] - 1)
+    lo = starts[kc] + (c - (last[kc] - pieces[kc])) * chunk_slots
+    hi = torch.minimum(lo + chunk_slots, ends[kc])
+    used = k < starts.shape[0]
+    return torch.stack([torch.where(used, lo, 0), torch.where(used, hi, 0)]).to(torch.int32)
+
+
+def fine_tables(a_ids, b_ids, out_ids, nbr: int, nbrB: int, nbc: int, b: int):
+    """`build_tables` plus the kernel's `slot_chunks` (windows sized by
+    `col_window` for leaf b): the seven tables of one structure, made once
+    per plan (ops.fine.make_fine_plan)."""
+    tables = build_tables(a_ids, b_ids, out_ids, nbr, nbrB, nbc)
+    window = col_window(nbc, b_ids.shape[0], b)
+    return tables + (slot_chunks(out_ids, tables[4], nbc, window=window),)
 
 
 def _operands(a_data, b_data, block_size, precision, alpha):
@@ -118,7 +186,9 @@ def _kernel_lib():
         lib = _build.load("gemm_fine")
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.hbsm_fine_spgemm.restype = i
-        lib.hbsm_fine_spgemm.argtypes = [p] * 8 + [i] * 6 + [p]
+        lib.hbsm_fine_spgemm.argtypes = [p, i] + [p] * 9 + [i] * 5 + [p]
+        lib.hbsm_fine_spgemm_config.restype = i
+        lib.hbsm_fine_spgemm_config.argtypes = [i] * 4 + [p]
         lib.hbsm_cuda_error_string.restype = ctypes.c_char_p
         lib.hbsm_cuda_error_string.argtypes = [i]
         _LIB = lib
@@ -166,8 +236,10 @@ def fine_spgemm(
     """Products accumulated into `out_ids` slots, `alpha`-scaled.
 
     `c_row_max` is accepted for the reference's signature: the kernel
-    gives each output slot its own thread block, so a C row needs no
-    buffer and has no cap (the caller still flags rows above it).
+    cuts each C row into chunks of slots, one thread block each, and keeps
+    every slot's sums in registers, so a C row needs no buffer and has no
+    cap (the caller still flags rows above it).  `tables` is
+    `fine_tables(...)` of these ids (a plan's), else built here.
     """
     device = a_data.device
     if device.type == "cpu":
@@ -180,17 +252,24 @@ def fine_spgemm(
         raise ValueError(f"fine_spgemm runs on CPU or CUDA tensors, got {device}")
     if b_data.device != device:
         raise ValueError(f"A on {device}, B on {b_data.device}")
+    b = a_data.shape[-1] if block_size is None else block_size
     if tables is None:
-        tables = build_tables(a_ids, b_ids, out_ids, nbr, nbrB, nbc)
-    a_row_start, a_col, b_row_start, b_col, _, _ = tables
+        tables = fine_tables(a_ids, b_ids, out_ids, nbr, nbrB, nbc, b)
+    if len(tables) != 7:
+        raise ValueError("fine_spgemm on the card needs fine_tables(...)")
+    a_row_start, a_col, b_row_start, b_col, c_row_start, ccol, chunks = tables
     cap_a, cap_b = a_data.shape[0], b_data.shape[0]
     for name, t, n in (
         ("a_ids", a_ids, cap_a), ("b_ids", b_ids, cap_b),
         ("out_ids", out_ids, out_cap), ("a_row_start", a_row_start, nbr + 1),
         ("a_col", a_col, cap_a), ("b_row_start", b_row_start, nbrB + 1),
-        ("b_col", b_col, cap_b),
+        ("b_col", b_col, cap_b), ("c_row_start", c_row_start, nbr + 1),
+        ("ccol", ccol, out_cap),
     ):
         _check_index(name, t, n, device)
+    if chunks.dtype != torch.int32 or chunks.dim() != 2 or chunks.shape[0] != 2 \
+            or not chunks.is_contiguous() or chunks.device != device:
+        raise ValueError("chunks: need slot_chunks' contiguous int32 [2, n] table")
     b, _, precision, at, bt = _operands(a_data, b_data, block_size, precision, alpha)
     out = launch(out_ids, tables, at, bt, out_cap, nbr, nbc, b_row_max, precision)
     return _output(out, b, out_layout)
@@ -200,13 +279,16 @@ fine_spgemm.launches = 0
 
 
 def launch(out_ids, tables, at, bt, out_cap: int, nbr: int, nbc: int,
-           b_row_max: int, precision: str) -> torch.Tensor:
+           b_row_max: int, precision: str, ctas_per_sm: int | None = None) -> torch.Tensor:
     """The kernel alone, on CUDA operands made by `_operands` (`at`, `bt`,
-    with `precision` as it resolved) and the row tables of
-    `build_tables`: the C^T blocks ``[out_cap, b, b]`` f32.  Counts in
+    with `precision` as it resolved) and the tables of `fine_tables`: the
+    C^T blocks ``[out_cap, b, b]`` f32.  `ctas_per_sm` sizes the launch's
+    shared memory (default `ctas_per_sm(b, precision)`).  Counts in
     `fine_spgemm.launches`."""
-    a_row_start, a_col, b_row_start, b_col, _, _ = tables
+    del nbr
+    a_row_start, a_col, b_row_start, b_col, _, ccol, chunks = tables
     b = at.shape[-1]
+    ctas = ctas_per_sm or CTAS_PER_SM.get((b, precision), 1)
     if at.data_ptr() % 16 or bt.data_ptr() % 16:
         raise ValueError("fine_spgemm needs 16-byte aligned payloads")
     device = at.device
@@ -215,10 +297,10 @@ def launch(out_ids, tables, at, bt, out_cap: int, nbr: int, nbc: int,
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.hbsm_fine_spgemm(
-            out_ids.data_ptr(), a_row_start.data_ptr(), a_col.data_ptr(),
-            b_row_start.data_ptr(), b_col.data_ptr(), at.data_ptr(),
-            bt.data_ptr(), out.data_ptr(), out_cap, nbr, nbc,
-            _bucket(max(b_row_max, 1)), b, _PRECISIONS[precision], stream,
+            chunks.data_ptr(), chunks.shape[1], out_ids.data_ptr(), ccol.data_ptr(),
+            a_row_start.data_ptr(), a_col.data_ptr(), b_row_start.data_ptr(),
+            b_col.data_ptr(), at.data_ptr(), bt.data_ptr(), out.data_ptr(), nbc,
+            _bucket(max(b_row_max, 1)), b, _PRECISIONS[precision], ctas, stream,
         )
     if err != 0:
         raise RuntimeError(
@@ -226,6 +308,23 @@ def launch(out_ids, tables, at, bt, out_cap: int, nbr: int, nbc: int,
         )
     fine_spgemm.launches += 1
     return out
+
+
+def launch_config(b: int, precision: str, b_row_max: int,
+                  ctas_per_sm: int | None = None) -> dict:
+    """What `launch` would run, read from the library and the card: the A
+    entries staged per k-chunk, dynamic shared bytes, resident blocks per
+    SM, registers and local (spill) bytes per thread, threads per block."""
+    lib = _kernel_lib()
+    info = (ctypes.c_int * 6)()
+    err = lib.hbsm_fine_spgemm_config(
+        b, _PRECISIONS[precision], _bucket(max(b_row_max, 1)),
+        ctas_per_sm or CTAS_PER_SM.get((b, precision), 1), ctypes.cast(info, ctypes.c_void_p),
+    )
+    if err != 0:
+        raise RuntimeError(f"fine_spgemm config: {lib.hbsm_cuda_error_string(err).decode()}")
+    keys = ("kc", "smem_bytes", "blocks_per_sm", "registers", "local_bytes", "threads")
+    return dict(zip(keys, info))
 
 
 @contextlib.contextmanager
@@ -301,7 +400,7 @@ def fine_spgemm_reference(
     del c_row_max
     if tables is None:
         tables = build_tables(a_ids, b_ids, out_ids, nbr, nbrB, nbc)
-    _, a_col, b_row_start, b_col, _, _ = tables
+    a_col, b_row_start, b_col = tables[1:4]
     b, _, precision, at, bt = _operands(a_data, b_data, block_size, precision, alpha)
     dev = a_data.device
     if out_cap == 0:

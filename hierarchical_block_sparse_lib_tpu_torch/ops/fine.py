@@ -22,8 +22,8 @@ from hierarchical_block_sparse_lib_tpu_torch.core.block_matrix import (
     first_of_run,
 )
 from hierarchical_block_sparse_lib_tpu_torch.kernels.pallas_gemm_fine import (
-    build_tables,
     fine_spgemm,
+    fine_tables,
 )
 from hierarchical_block_sparse_lib_tpu_torch.ops import basic
 from hierarchical_block_sparse_lib_tpu_torch.ops import truncate as trunc_mod
@@ -167,7 +167,7 @@ class FinePlan:
     raw_total: torch.Tensor  # int32[]
     a_ids: torch.Tensor
     b_ids: torch.Tensor
-    tables: tuple  # build_tables(...) output (6 int32 tensors)
+    tables: tuple  # fine_tables(...) output (7 int32 tensors)
     row_overflow: torch.Tensor  # bool[] — row caps checked at plan time
 
 
@@ -196,8 +196,8 @@ def make_fine_plan(
     out_ids, n_unique, total, raw_total, row_overflow = _structure(
         sa, sb, pair_cap, out_cap, row_caps
     )
-    tables = build_tables(
-        sa.ids, sb.ids, out_ids, sa.nb_rows, sb.nb_rows, sb.nb_cols
+    tables = fine_tables(
+        sa.ids, sb.ids, out_ids, sa.nb_rows, sb.nb_rows, sb.nb_cols, sb.block_size
     )
     return FinePlan(
         out_ids=out_ids, n_unique=n_unique, total=total,

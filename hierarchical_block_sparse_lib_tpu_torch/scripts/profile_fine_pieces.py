@@ -6,8 +6,8 @@ On the configured B2 (``random_block_matrix(16384, 32, 0.05, seed=2)``,
 
   P1  the operand preparation, ``kernels/pallas_gemm_fine.py::_operands``
       (alpha folded into A^T; f32 payloads, contiguous);
-  P2  the row tables, ``build_tables`` (made once by `make_fine_plan`, so
-      not part of the planned call);
+  P2  the kernel's tables, ``fine_tables`` (made once by `make_fine_plan`,
+      so not part of the planned call);
   P3  the kernel alone on the plan's tables and P1's operands;
   P4  the output pass ``_output``: a view for the flat layout the chain
       uses (part of the call), and the canonical transpose that
@@ -69,8 +69,8 @@ def main(device="cuda", n: int = 16384, leaf: int = 32, density: float = 0.05,
     parts = {
         "call": lambda: hbsm.fine_matmul(Af, Af, pc, oc, (mbr, mcr), alpha=0.5, plan=plan),
         "P1 operands": lambda: pf._operands(Af.data, Af.data, leaf, "highest", 0.5),
-        "P2 build_tables": lambda: pf.build_tables(Af.ids, Af.ids, plan.out_ids, nbr, nbr,
-                                                   nbc),
+        "P2 fine_tables": lambda: pf.fine_tables(Af.ids, Af.ids, plan.out_ids, nbr, nbr,
+                                                 nbc, leaf),
         "P3 kernel": kernel,
         "P4 output flat": lambda: pf._output(ct, leaf, "flat"),
         "P4 output canonical": lambda: pf._output(ct, leaf, "canonical"),

@@ -1,7 +1,7 @@
 """The port's utils/profiling.py against the JAX package's: `Counters` fed
 the `MultiplyInfo` and `PurificationStats` of the same operations in both
 packages; the trace and timing helpers on the CPU; and the port's
-scripts/profile_fine_pieces.py at a small size."""
+scripts/profile_fine_pieces.py and time_fine_kernel.py at a small size."""
 
 import json
 import os
@@ -15,7 +15,7 @@ import hierarchical_block_sparse_lib_tpu_torch as tx
 from hierarchical_block_sparse_lib_tpu.models import purification as jpur
 from hierarchical_block_sparse_lib_tpu.ops.spgemm import plan_spgemm
 from hierarchical_block_sparse_lib_tpu.utils.profiling import Counters as JaxCounters
-from hierarchical_block_sparse_lib_tpu_torch.scripts import profile_fine_pieces
+from hierarchical_block_sparse_lib_tpu_torch.scripts import profile_fine_pieces, time_fine_kernel
 from hierarchical_block_sparse_lib_tpu_torch.utils import profiling as tp
 
 from torch_port_helpers import matrix_pair
@@ -93,6 +93,14 @@ def test_timing_measures_nothing_off_the_card():
 def test_profile_fine_pieces_runs_on_the_cpu():
     res = profile_fine_pieces.main("cpu", n=512)
     assert res["pairs"] > 0
-    assert {"call", "P1 operands", "P2 build_tables", "P3 kernel", "P4 output flat",
+    assert {"call", "P1 operands", "P2 fine_tables", "P3 kernel", "P4 output flat",
             "P4 output canonical"} <= set(res)
     assert all(v == (None, None) for k, v in res.items() if k != "pairs")
+
+
+def test_time_fine_kernel_runs_on_the_cpu():
+    res = time_fine_kernel.main("cpu", n=512)
+    assert set(res) == {(b, t) for b in (16, 32, 64) for t in time_fine_kernel.TIERS}
+    for r in res.values():  # counted, not timed
+        assert r["pairs"] > 0 and r["ms"] is None and r["ns_per_product_per_sm"] is None
+        assert r["bound"][0] > 0 and r["config"] == {}
