@@ -65,11 +65,14 @@ final line):
     times and a torch.profiler breakdown of the planned product;
 14. the fine kernel's micro-benchmarks: the four micro kernels (micro,
     e2, e3, e12) against their plain versions at small shapes (every
-    mode, recipe, tier and do_adds), then the port's three measurement
+    mode, recipe, tier and do_adds; micro at reps 0, 1, 5 on shapes that
+    cut its block tiles, "quad" bitwise equal to "wide" at 896; e3 with
+    out-of-range, one-slot and empty indices, and one e3 call shown to be
+    one launch of one kernel), then the port's three measurement
     scripts at their own shapes (scripts/micro_fine_kernel.py,
     micro_fine_kernel2.py: each kernel against its plain version, its
-    times, bound and library time, and the torch-op probes; the micro
-    kernels' launches counted around them), scripts/
+    times, bound and library time in turns, and the torch-op probes; the micro kernels' launches counted
+    around them; the micro kernels' profiler device times), scripts/
     profile_fine_pieces.py: the planned B2 multiply in parts, and scripts/
     time_fine_kernel.py: the fine kernel alone at B2's structure for each
     leaf and tier, and its launch sizes swept.
@@ -846,8 +849,8 @@ def acceptance_purification():
 def device_profile(label, run, reps, card, unit="call", top=10):
     """torch.profiler over `reps` calls of run(): the CUDA-event window,
     the device's busy time and idle share, and device time by kernel, per
-    call.  Returns {kernel: device us per call}, empty when the profiler
-    recorded no device time."""
+    call.  Returns {kernel: (device us, launches) recorded over the `reps`
+    calls}, empty when the profiler recorded no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -879,10 +882,19 @@ def device_profile(label, run, reps, card, unit="call", top=10):
           f"{100 * (1 - busy / window_us):.1f}% of the window")
     for name, (t, cnt) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:top]:
         print(f"[profile]   {100 * t / busy:5.1f}%  {t / reps:8.1f} us/{unit}  "
-              f"{cnt // reps:4d} launches/{unit}  {name[:90]}")
+              f"{cnt / reps:5.1f} launches/{unit}  {name[:90]}")
     print(f"[profile]   {len(kernels)} distinct device functions, "
           f"{sum(c for _, c in kernels.values()) // reps} launches per {unit}")
-    return {name: t / reps for name, (t, _) in kernels.items()}
+    return kernels
+
+
+def per_call_us(dev, reps, match=""):
+    """Device us per call of the kernels of `dev` (device_profile's totals
+    over `reps` calls) whose names hold `match`: each kernel's time per
+    recorded launch times its launches per call.  The profiler can drop a
+    launch's record (late in this script, one of ten launches of a
+    one-kernel call), which a total over `reps` would count as no time."""
+    return sum(t / n * round(n / reps) for k, (t, n) in dev.items() if match in k and n)
 
 
 def profile_planned_b3(A, prof, plans, card):
@@ -1143,12 +1155,16 @@ def b2_tile128(card):
     return entries, got["gather_gemm_accumulate_stream"], v1["gather_gemm_accumulate"]
 
 
-def small_micro():
+def small_micro(card):
     """Phase 14: the four micro kernels vs their plain versions at small
-    shapes (every mode and tier of micro, a ragged wide panel among them;
-    the three e2 recipes; e3 with indices past the last slot; e12 at both
-    tiers with and without the adds), the [8, 128] output and the whole
-    accumulator both compared."""
+    shapes: micro in every mode and tier at reps 0, 1 and 5, at shapes
+    that cut the dot kernel's block tiles (32x32, 300x200, a ragged panel
+    and 832 and 896 squares) and "quad" bitwise equal to "wide" at 896; the
+    three e2 recipes; e3 bitwise, with indices past the last slot, below
+    zero, all in one slot and none, and one e3 call read by its launch
+    counter and by the profiler (one kernel, no sort); e12 at both tiers
+    with and without the adds.  The [8, 128] output and the whole
+    accumulator are both compared."""
     import torch
 
     from hierarchical_block_sparse_lib_tpu_torch.kernels import micro_fine as mf
@@ -1166,24 +1182,42 @@ def small_micro():
             raise AssertionError(f"{name}: kernel vs plain rel err {err:.3e} > {tol}")
         print(f"  {name:34s} kernel-vs-plain rel err={err:.3e} (out and acc; tol {tol})")
 
-    for mode, la, lb in (("wide", 300, 200), ("wide", 256, 128), ("quad", 256, 384),
-                         ("flatten", 128, 128)):
+    for mode, la, lb in (("wide", 32, 32), ("wide", 300, 200), ("wide", 256, 128),
+                         ("wide", 832, 832), ("wide", 896, 896), ("quad", 256, 384),
+                         ("quad", 896, 896), ("flatten", 128, 128)):
         at, bp = normal((32, la)), normal((32, lb))
         for prec in ("highest", "default"):
-            check(f"micro {mode} {la}x{lb} {prec}", mf.micro(at, bp, mode, prec, reps=5),
-                  mf.micro_reference(at, bp, mode, prec, reps=5), MICRO_TOL[prec])
+            for reps in (0, 1, 5):
+                check(f"micro {mode} {la}x{lb} {prec} reps={reps}",
+                      mf.micro(at, bp, mode, prec, reps=reps),
+                      mf.micro_reference(at, bp, mode, prec, reps=reps), MICRO_TOL[prec])
+    at, bp = normal((32, 896)), normal((32, 896))
+    for prec in ("highest", "default"):
+        wide, quad = mf.micro(at, bp, "wide", prec, reps=5)[1], mf.micro(at, bp, "quad", prec,
+                                                                          reps=5)[1]
+        if not torch.equal(wide, quad):
+            raise AssertionError(f"micro quad differs from wide at 896 {prec}")
+    print("  micro quad == wide bitwise at 896x896, both tiers")
     x = normal((32, 32), 1.0)
     for variant in mf.VARIANTS:
         if not torch.equal(mf.e2(x, variant), x.reshape(8, 128)):
             raise AssertionError(f"e2 {variant} differs from x.reshape(8, 128)")
     print(f"  e2 {', '.join(mf.VARIANTS)}: each equal to x.reshape(8, 128) bitwise")
-    idx = torch.from_numpy(rng.integers(0, 520, 300).astype(np.int32)).to(DEVICE)
     v = normal((8, 128), 1.0)
-    got, want = mf.e3(idx, v), mf.e3_reference(idx, v)
-    torch.cuda.synchronize()
-    if not all(torch.equal(g, w) for g, w in zip(got, want)):
-        raise AssertionError("e3 differs from its plain version")
-    print("  e3 300 adds (indices up to 519, past the last slot 511): equal to plain bitwise")
+    for label, idx in (
+        ("300 adds, indices up to 519 (past the last slot 511)", rng.integers(0, 520, 300)),
+        ("4096 adds all into slot 7", np.full(4096, 7)),
+        ("4097 adds, indices in [-600, 1100)", rng.integers(-600, 1100, 4097)),
+        ("no adds", np.zeros(0)),
+    ):
+        idx = torch.from_numpy(idx.astype(np.int32)).to(DEVICE)
+        got, want = mf.e3(idx, v), mf.e3_reference(idx, v)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"e3 differs from its plain version: {label}")
+        print(f"  e3 {label}: equal to plain bitwise")
+    e3_one_launch(mf, v, torch.from_numpy(rng.integers(0, 500, 4096).astype(np.int32)).to(DEVICE),
+                  card)
     a_wide, panel = normal((5, 32, 128)), normal((8 * 26, 128))
     idx12 = torch.from_numpy(rng.integers(0, 512, 5 * 26).astype(np.int32)).to(DEVICE)
     for prec in ("highest", "default"):
@@ -1191,6 +1225,23 @@ def small_micro():
             check(f"e12 RA=5 {prec} adds={do_adds}",
                   mf.e12(a_wide, panel, idx12, prec, do_adds),
                   mf.e12_reference(a_wide, panel, idx12, prec, do_adds), MICRO_TOL[prec])
+
+
+def e3_one_launch(mf, v, idx, card):
+    """One e3 call at R3 = 4096: its launch counter must read 1, and the
+    profiler over ten calls must list one device function, the e3 kernel
+    (no sort or searchsorted, nor any other), launched at most once a call."""
+    mf.e3.launches = 0
+    mf.e3(idx, v)
+    launches, mf.e3.launches = mf.e3.launches, 0
+    dev = device_profile("e3 at R3=4096", lambda: mf.e3(idx, v), 10, card)
+    mf.e3.launches = 0
+    names = list(dev)
+    if (launches != 1 or len(names) != 1 or "e3_kernel" not in names[0]
+            or dev[names[0]][1] > 10):
+        raise AssertionError(f"one e3 call: {launches} counted launches, device functions "
+                             f"{dev}; expected 1 and the e3 kernel alone")
+    print(f"  e3 one call at R3=4096: 1 counted launch; the profiler lists {names}")
 
 
 def micro_path(card, fine_ns_per_pair):
@@ -1212,14 +1263,16 @@ def micro_path(card, fine_ns_per_pair):
     if min(got.values()) < 1:
         raise AssertionError(f"a micro kernel never launched on the scripts' path: {got}")
     print(f"[micro] {card}: the scripts at their shapes, CUDA events, median of 7 after 2 "
-          f"warm-up calls, kernel and plain in turns; launches {got}")
+          f"warm-up calls, kernel, plain and library in turns (in order, then reversed); "
+          f"launches {got}")
     for name, r in recs.items():
         if "four" not in r:  # a torch op
             print(f"[micro]   {name:24s} {r['ms']:.4f} ms, {r['nbytes'] / r['ms'] / 1e6:.0f} GB/s "
                   f"(bound {r['bound_ms']:.4f} ms)")
             continue
         k1, k2, p1, p2 = r["four"]
-        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        lib = ("none" if r["library_two"] is None else
+               f"{r['library_two'][0]:.4f} / {r['library_two'][1]:.4f} ms")
         print(f"[micro]   {name:24s} kernel {k1:.4f} / {k2:.4f} ms  plain {p1:.4f} / {p2:.4f} ms"
               f"  library {lib}  bound {r['bound_ms']:.5f} ms ({r['bound_by']})  "
               f"rel err {r['rel_err']:.2e}")
@@ -1238,21 +1291,34 @@ def micro_path(card, fine_ns_per_pair):
         return torch.from_numpy((rng.standard_normal(shape) * 0.1).astype(np.float32)).to(DEVICE)
 
     at, bp = normal(32, m1.Sizes().LA), normal(32, m1.Sizes().LA)
+    atq, bpq = normal(32, m1.Sizes().LAQ), normal(32, m1.Sizes().LAQ)
     a_wide, panel = normal(sizes.RA, 32, 128), normal(8 * sizes.NBROW, 128)
     idx = torch.from_numpy(rng.integers(0, 500, n_leaf).astype(np.int32)).to(DEVICE)
     for label, run, kernel, n in (
-        ("micro wide highest", lambda: mf.micro(at, bp, "wide"), "micro_dot", None),
-        ("micro wide default", lambda: mf.micro(at, bp, "wide", "default"), "micro_dot", None),
+        ("micro wide highest", lambda: mf.micro(at, bp, "wide"), "dot_", None),
+        ("micro quad highest", lambda: mf.micro(atq, bpq, "quad"), "dot_", None),
+        ("micro wide default", lambda: mf.micro(at, bp, "wide", "default"), "dot_", None),
+        ("micro quad default", lambda: mf.micro(atq, bpq, "quad", "default"), "dot_", None),
         ("e3 R3=4096", lambda: mf.e3(idx[:sizes.R3], panel[:8]), "e3_kernel", None),
         ("e12 highest adds", lambda: mf.e12(a_wide, panel, idx), "e12_kernel", n_leaf),
         ("e12 default adds", lambda: mf.e12(a_wide, panel, idx, "default"), "e12_kernel", n_leaf),
         ("e12 highest no adds", lambda: mf.e12(a_wide, panel, idx, do_adds=False),
          "e12_kernel", n_leaf),
     ):
-        dev = device_profile(label, run, 10, card, top=3)
-        us = sum(t for k, t in dev.items() if kernel in k)
+        us = per_call_us(device_profile(label, run, 10, card, top=3), 10, kernel)
         per = f", {us * 1e3 / n:.2f} ns per leaf product" if n and us else ""
+        if kernel == "dot_" and us:
+            la = at.shape[1] if "wide" in label else atq.shape[1]
+            hi = "highest" in label
+            b_ms, _ = bound(2 * la * la * 32 * mf.REPS, 4 * 32 * 2 * la + 4 * la * la,
+                            "fp32" if hi else "bf16")
+            per = f", {100 * b_ms * 1e3 / us:.1f}% of its {b_ms:.4f} ms bound"
         print(f"[micro] {label}: {kernel} {us:.1f} us of device time per call{per}")
+    for prec in ("highest", "default"):  # the library yardstick's device time
+        dev = device_profile(f"stacked torch.matmul {prec}", m1.stacked_matmul(
+            at, bp, mf.REPS, prec), 10, card, top=3)
+        print(f"[micro] stacked torch.matmul {prec} at 832: {per_call_us(dev, 10):.1f} us of "
+              f"device time per call")
     parts = pp.main(DEVICE)
     print(f"[B2 parts] {card}: " + ", ".join(
         f"{k} {v[0]:.4f} ms (spread {v[1]:.4f})" for k, v in parts.items()
@@ -1423,7 +1489,7 @@ def main() -> int:
     # Phase 14: the micro kernels at small shapes, then the measurement
     # scripts at their shapes and the B2 multiply in parts.
     print("[small] micro kernels vs plain versions")
-    small_micro()
+    small_micro(card)
     micro_entries, micro_launches = micro_path(card, fine_ns_per_pair)
     entries.update(micro_entries)
     print(f"[mem] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")

@@ -10,13 +10,32 @@
 // kernels/micro_fine.py.
 //
 //   micro "wide"/"quad": acc[0:LA, 0:LB] = sum_{i<R} (at * s_i)^T bp with
-//     s_i = 1 + f32(i) * 1e-9 in f32, each rep's product summed on its own
-//     first and then added, in rep order.  Bound by operations
-//     (2*LA*LB*32*R; 11.3 GFLOP at LA = LB = 832, R = 256: 0.169 ms of
-//     FP32).  One thread block owns one TxT tile of acc and runs the R reps
-//     serially over it: T = 32 for "wide" (676 blocks at 832, enough to
-//     fill the card), T = 128 for "quad" (one block per 128x128 quad
-//     pair, as the TPU's per-quad dots: 49 blocks at 896, 49 of 132 SMs).
+//     s_i = 1 + f32(i) * 1e-9 in f32, each rep's 32-deep product formed on
+//     its own and then added, in rep order; the rest of acc is written
+//     zero.  "quad" is the same function as "wide" and runs the same
+//     kernel on the same tiling.  Bound by operations (2*LA*LB*32*R; 11.3
+//     GFLOP at LA = LB = 832, R = 256: 0.169 ms of FP32).  One block owns
+//     a BM x BN tile of acc and runs the R reps serially over it, B staged
+//     once.  The reps go in steps of G: while the block computes one
+//     step's G products from one pair of shared A tiles it writes fl(at *
+//     s_i) of the next step into the other, so each scaled value is one
+//     FMUL per rep shared by every thread that reads it; one barrier per
+//     step.  "highest" (FP32 FFMA): each thread a 4x4 register tile, 16
+//     outputs, since 692 224 outputs of 256 serial reps give too few warps
+//     for larger tiles (1 352 warps at 832 on 528 schedulers); float4
+//     shared loads free of bank conflicts; the 32-deep k loop unrolled
+//     with fragments double-buffered in registers.  What bounds it is
+//     shared memory: a warp's 16-byte load is served 32 floats a
+//     wavefront, so a 4x4 tile asks 4 * (4G + 4) / (16G) wavefronts a cycle
+//     of an SM that serves one (2 at G = 1).  G = 2 shares each B fragment
+//     between two reps, and B's depths 0-15 held in registers (kr16) cut
+//     the demand to 1.25.  "default":
+//     one bf16 mma.sync pass; in the mma fragment layout each element of
+//     A belongs to one lane, so each lane scales and rounds its own A
+//     values (one FMUL per element per rep, no shared memory, no barrier)
+//     and B's fragments stay in registers for the whole kernel (staging A
+//     through shared memory as the FFMA kernel does measured slower
+//     here).  Each tier has one tiling; the C entry sizes the grid.
 //   micro "flatten": per rep, acc rows 128 + 8(4t+c) + r, lane l += the
 //     [8,128] row-major reading of the 32x32 sub-block (t, c) of
 //     acc[0:128, 0:128] + s_i.  Bound by latency: 64 KB moved.  One thread
@@ -25,9 +44,12 @@
 //     staged [4,8,32] stack read back transposed; four row groups
 //     concatenated).  All three are copies and equal bitwise.  One block.
 //   e3: acc slot p (an [8,128] block) = v added once for each i < R3 with
-//     idx[i] == p, serially.  The wrapper sorts idx into runs per slot
-//     (run_start); one thread block owns one slot and adds in registers,
-//     so no slot is written twice and no atomics are needed.
+//     idx[i] == p, serially.  Every entry adds the same v, so a slot's
+//     value depends only on its count, never on the order of its entries:
+//     one launch, no sort.  A block owns kE3Slots slots, counts their
+//     entries over idx (integer, exact), then adds v count times in
+//     registers, serially in f32, and writes the slots (not count * v: a
+//     product rounds differently).  Bound by latency: 16 KB of indices.
 //   e12: for each A block e < RA and panel block t < nbrow, slot idx[e *
 //     nbrow + t] += X_t L_e, with X_t the panel's block t read as a
 //     row-major 32x32 and L_e = a_wide[e][:, 0:32]: 6 656 leaf products of
@@ -101,89 +123,247 @@ __device__ __forceinline__ void load_b(uint32_t* b, const float* src, int sk,
 
 // ---- micro "wide" / "quad" ---------------------------------------------
 
-template <int T, bool kMma>
-__global__ void __launch_bounds__((T / 4) * (T / 4))
-    micro_dot_kernel(const float* __restrict__ at, const float* __restrict__ bp,
-                     float* __restrict__ acc, int la, int lb, int acc_cols,
-                     int reps) {
-  constexpr int kThreads = (T / 4) * (T / 4);
-  constexpr int S = T / 4;  // thread grid side; rows/cols stride
-  __shared__ __align__(16) float sa[32 * T];  // at[k][m0 + m]
-  __shared__ __align__(16) float sb[32 * T];  // bp[k][n0 + n]
-  const int m0 = blockIdx.y * T, n0 = blockIdx.x * T;
-  for (int v = threadIdx.x; v < 32 * T; v += kThreads) {
-    const int k = v / T, j = v % T;
-    sa[v] = m0 + j < la ? at[k * la + m0 + j] : 0.f;
-    sb[v] = n0 + j < lb ? bp[k * lb + n0 + j] : 0.f;
+// Writes zeros over the block's BM x BN tile of acc (the parts inside
+// acc): a tile that holds no output of the product.
+template <int BM, int BN, int T>
+__device__ __forceinline__ void zero_tile(float* __restrict__ acc, int m0, int n0,
+                                          int acc_rows, int acc_cols) {
+  for (int v = threadIdx.x; v < BM * BN; v += T) {
+    const int m = m0 + v / BN, n = n0 + v % BN;
+    if (m < acc_rows && n < acc_cols) acc[static_cast<size_t>(m) * acc_cols + n] = 0.f;
   }
+}
+
+// The output (m, n) as the kernel stores it: the sum inside the product,
+// zero in acc's padding rows and columns.
+__device__ __forceinline__ void store_out(float* __restrict__ acc, int m, int n, float x,
+                                          int la, int lb, int acc_rows, int acc_cols) {
+  if (m < acc_rows && n < acc_cols)
+    acc[static_cast<size_t>(m) * acc_cols + n] = m < la && n < lb ? x : 0.f;
+}
+
+// Resident warps per SM the FFMA kernels are compiled for (registers <=
+// 65536 / (32 * 12) = 170): at 896 the 1 568 warps of 16 outputs a thread
+// fit on 132 SMs in one wave.
+constexpr int kDotWarpsPerSM = 12;
+
+// "highest": GN reps' 32-deep products of a thread's TM x TN tile, each
+// formed on its own (k in order) from the staged tiles sa[g] = fl(at * s)
+// and sb (depths k < KR of B from registers, breg), then added to sum in
+// rep order.  Fragments are double-buffered in registers, a depth ahead;
+// each B fragment serves GN reps.
+template <int TM, int TN, int BY, int BX, int BM, int BN, int GN, int KR>
+__device__ __forceinline__ void ffma_reps(const float (*__restrict__ sa)[32][BM],
+                                          const float (*__restrict__ sb)[BN],
+                                          const float (&breg)[KR > 0 ? KR : 1][TN], int tx,
+                                          int ty, float (&sum)[TM][TN]) {
+  float part[GN][TM][TN] = {};
+  float fa[2][GN][TM], fb[2][TN];
+  auto load = [&](int f, int k) {
+#pragma unroll
+    for (int g = 0; g < GN; ++g)
+#pragma unroll
+      for (int c = 0; c < TM / 4; ++c) {
+        const float4 x = *reinterpret_cast<const float4*>(&sa[g][k][c * 4 * BY + 4 * ty]);
+        fa[f][g][4 * c] = x.x, fa[f][g][4 * c + 1] = x.y, fa[f][g][4 * c + 2] = x.z,
+                  fa[f][g][4 * c + 3] = x.w;
+      }
+    if (k < KR) {
+#pragma unroll
+      for (int w = 0; w < TN; ++w) fb[f][w] = breg[k < KR ? k : 0][w];
+      return;
+    }
+#pragma unroll
+    for (int c = 0; c < TN / 4; ++c) {
+      const float4 x = *reinterpret_cast<const float4*>(&sb[k][c * 4 * BX + 4 * tx]);
+      fb[f][4 * c] = x.x, fb[f][4 * c + 1] = x.y, fb[f][4 * c + 2] = x.z,
+                fb[f][4 * c + 3] = x.w;
+    }
+  };
+  load(0, 0);
+#pragma unroll
+  for (int k = 0; k < 32; ++k) {
+    if (k + 1 < 32) load((k + 1) & 1, k + 1);
+#pragma unroll
+    for (int g = 0; g < GN; ++g)
+#pragma unroll
+      for (int u = 0; u < TM; ++u)
+#pragma unroll
+        for (int w = 0; w < TN; ++w)
+          part[g][u][w] = fmaf(fa[k & 1][g][u], fb[k & 1][w], part[g][u][w]);
+  }
+#pragma unroll
+  for (int g = 0; g < GN; ++g)
+#pragma unroll
+    for (int u = 0; u < TM; ++u)
+#pragma unroll
+      for (int w = 0; w < TN; ++w) sum[u][w] += part[g][u][w];
+}
+
+// "highest": BY x BX threads, each a TM x TN register tile; the block tile
+// is BM = BY*TM rows by BN = BX*TN columns.  A thread's rows are the float4
+// groups c*4*BY + 4*ty + {0..3} (c < TM/4), its columns c*4*BX + 4*tx +
+// {0..3}: each fragment is TM/4 + TN/4 16-byte shared loads, and the eight
+// threads of a load phase read one contiguous 128 bytes or one broadcast.
+// The reps run in steps of G: the block stages the next step's G scaled A
+// tiles while it computes the current step's, one barrier per step.  The
+// kernel is compiled for kDotWarpsPerSM resident warps per SM.
+template <int TM, int TN, int BY, int BX, int G, int KR>
+__global__ void __launch_bounds__(BY * BX, kDotWarpsPerSM * 32 / (BY * BX))
+    dot_ffma_kernel(const float* __restrict__ at, const float* __restrict__ bp,
+                    float* __restrict__ acc, int la, int lb, int acc_rows, int acc_cols,
+                    int reps) {
+  constexpr int T = BY * BX, BM = BY * TM, BN = BX * TN;
+  constexpr int kStage = 8 * BM / T;  // float4s of A each thread scales per rep
+  static_assert(TM % 4 == 0 && TN % 4 == 0 && (8 * BM) % T == 0 && kStage >= 1,
+                "tile does not split into float4 groups");
+  __shared__ __align__(16) float sa[2][G][32][BM];  // fl(at[k][m0 + m] * s_i), two steps
+  __shared__ __align__(16) float sb[32][BN];        // bp[k][n0 + n]
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN, tid = threadIdx.x;
+  if (m0 >= la || n0 >= lb) {
+    zero_tile<BM, BN, T>(acc, m0, n0, acc_rows, acc_cols);
+    return;
+  }
+  const int tx = tid % BX, ty = tid / BX;
+  for (int v = tid; v < 32 * BN; v += T) {
+    const int k = v / BN, j = v % BN;
+    sb[k][j] = n0 + j < lb ? bp[k * lb + n0 + j] : 0.f;
+  }
+  // Depths k < KR of the thread's B columns, held in registers.
+  float breg[KR > 0 ? KR : 1][TN];
+#pragma unroll
+  for (int k = 0; k < KR; ++k)
+#pragma unroll
+    for (int w = 0; w < TN; ++w) {
+      const int n = n0 + (w / 4) * 4 * BX + 4 * tx + w % 4;
+      breg[k][w] = n < lb ? bp[k * lb + n] : 0.f;
+    }
+  // The A values this thread scales, kept unscaled in registers.
+  float4 araw[kStage];
+#pragma unroll
+  for (int s = 0; s < kStage; ++s) {
+    const int v4 = tid + s * T, k = v4 / (BM / 4), m = m0 + 4 * (v4 % (BM / 4));
+    const float* p = at + k * la;
+    araw[s] = make_float4(m < la ? p[m] : 0.f, m + 1 < la ? p[m + 1] : 0.f,
+                          m + 2 < la ? p[m + 2] : 0.f, m + 3 < la ? p[m + 3] : 0.f);
+  }
+  auto stage = [&](int buf, int first) {  // reps first .. first + G - 1 below reps
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      if (first + g >= reps) break;
+      const float sc = rep_scale(first + g);
+#pragma unroll
+      for (int s = 0; s < kStage; ++s) {
+        const int v4 = tid + s * T, k = v4 / (BM / 4), m = 4 * (v4 % (BM / 4));
+        *reinterpret_cast<float4*>(&sa[buf][g][k][m]) =
+            make_float4(__fmul_rn(araw[s].x, sc), __fmul_rn(araw[s].y, sc),
+                        __fmul_rn(araw[s].z, sc), __fmul_rn(araw[s].w, sc));
+      }
+    }
+  };
+  if (reps > 0) stage(0, 0);
   __syncthreads();
-  if constexpr (!kMma) {
-    const int tx = threadIdx.x % S, ty = threadIdx.x / S;
-    float sum[4][4] = {};
-    for (int i = 0; i < reps; ++i) {
-      const float s = rep_scale(i);
-      float part[4][4] = {};
-#pragma unroll 4
-      for (int k = 0; k < 32; ++k) {
-        float a[4], b[4];
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          a[u] = __fmul_rn(sa[k * T + ty + u * S], s);
-          b[u] = sb[k * T + tx + u * S];
-        }
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-#pragma unroll
-          for (int w = 0; w < 4; ++w) part[u][w] = fmaf(a[u], b[w], part[u][w]);
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-#pragma unroll
-        for (int w = 0; w < 4; ++w) sum[u][w] += part[u][w];
+  float sum[TM][TN] = {};
+  const int steps = (reps + G - 1) / G;
+  for (int st = 0; st < steps; ++st) {
+    const int buf = st & 1, first = st * G;
+    if (st + 1 < steps) stage(buf ^ 1, first + G);
+    if (first + G <= reps) {
+      ffma_reps<TM, TN, BY, BX, BM, BN, G, KR>(sa[buf], sb, breg, tx, ty, sum);
+    } else {
+      for (int g = 0; g < reps - first; ++g)
+        ffma_reps<TM, TN, BY, BX, BM, BN, 1, KR>(sa[buf] + g, sb, breg, tx, ty, sum);
     }
+    __syncthreads();
+  }
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int m = m0 + ty + u * S;
+  for (int u = 0; u < TM; ++u) {
+    const int m = m0 + (u / 4) * 4 * BY + 4 * ty + u % 4;
 #pragma unroll
-      for (int w = 0; w < 4; ++w) {
-        const int n = n0 + tx + w * S;
-        if (m < la && n < lb) acc[static_cast<size_t>(m) * acc_cols + n] = sum[u][w];
-      }
-    }
-  } else {
-    // Each warp owns four 16x8 tiles: rows 16*(warp / (T/32)), columns
-    // 8*(4*(warp % (T/32)) + j), j < 4.
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int tm = 16 * (warp / (T / 32)), tn = 32 * (warp % (T / 32));
-    float sum[4][4] = {};
-    for (int i = 0; i < reps; ++i) {
-      const float s = rep_scale(i);
-      float part[4][4] = {};
+    for (int w = 0; w < TN; ++w)
+      store_out(acc, m, n0 + (w / 4) * 4 * BX + 4 * tx + w % 4, sum[u][w], la, lb,
+                acc_rows, acc_cols);
+  }
+}
+
+// "default" with no shared memory: WY warps along m, each MT x NT tiles of
+// m16n8.  In the mma fragment layout each element of A belongs to one lane,
+// so each lane keeps its A values unscaled in registers and scales and
+// rounds them itself, one FMUL per element per rep, with no barrier; B's
+// fragments stay in registers.
+template <int MT, int NT, int WY>
+__global__ void __launch_bounds__(32 * WY)
+    dot_mma_lane_kernel(const float* __restrict__ at, const float* __restrict__ bp,
+                        float* __restrict__ acc, int la, int lb, int acc_rows, int acc_cols,
+                        int reps) {
+  constexpr int T = 32 * WY, BM = 16 * MT * WY, BN = 8 * NT;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN, tid = threadIdx.x;
+  if (m0 >= la || n0 >= lb) {
+    zero_tile<BM, BN, T>(acc, m0, n0, acc_rows, acc_cols);
+    return;
+  }
+  const int lane = tid & 31, g8 = lane >> 2, c = (lane & 3) * 2;
+  const int wm = (tid >> 5) * 16 * MT;
+  uint32_t fb[NT][2][2];
 #pragma unroll
-      for (int k0 = 0; k0 < 32; k0 += 16) {
-        uint32_t a[4];
-        load_a(a, sa, 1, T, tm, k0, s);  // A(m, k) = at[k][m] * s
+  for (int j = 0; j < NT; ++j) {
+    const int n = n0 + 8 * j + g8;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          uint32_t b[2];
-          load_b(b, sb, T, k0, tn + 8 * j);
-          mma_bf16(part[j], a, b);
-        }
-      }
+    for (int ks = 0; ks < 2; ++ks)
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) sum[j][q] += part[j][q];
-    }
-    const int g = lane >> 2, c = (lane & 3) * 2;
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int m = m0 + tm + g + 8 * (q >> 1), n = n0 + tn + 8 * j + c + (q & 1);
-        if (m < la && n < lb) acc[static_cast<size_t>(m) * acc_cols + n] = sum[j][q];
+      for (int h = 0; h < 2; ++h) {
+        const int k = 16 * ks + 8 * h + c;
+        fb[j][ks][h] = pack_bf16(n < lb ? bp[k * lb + n] : 0.f,
+                                 n < lb ? bp[(k + 1) * lb + n] : 0.f);
       }
   }
+  // araw[mt][ks][r][h]: A(m = wm + 16 mt + g8 + 8r, k = 16 ks + 8h + c, c + 1)
+  float2 araw[MT][2][2][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = m0 + wm + 16 * mt + g8 + 8 * r, k = 16 * ks + 8 * h + c;
+          araw[mt][ks][r][h] = m < la ? make_float2(at[k * la + m], at[(k + 1) * la + m])
+                                      : make_float2(0.f, 0.f);
+        }
+  float sum[MT][NT][4] = {};
+#pragma unroll 2
+  for (int i = 0; i < reps; ++i) {
+    const float sc = rep_scale(i);
+    float part[MT][NT][4] = {};
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        uint32_t fa[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {  // a[2h + r]
+          const float2 x = araw[mt][ks][q & 1][q >> 1];
+          fa[q] = pack_bf16(__fmul_rn(x.x, sc), __fmul_rn(x.y, sc));
+        }
+#pragma unroll
+        for (int j = 0; j < NT; ++j) mma_bf16(part[mt][j], fa, fb[j][ks]);
+      }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) sum[mt][j][q] += part[mt][j][q];
+  }
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        store_out(acc, m0 + wm + 16 * mt + g8 + 8 * (q >> 1), n0 + 8 * j + c + (q & 1),
+                  sum[mt][j][q], la, lb, acc_rows, acc_cols);
 }
 
 // ---- micro "flatten" ---------------------------------------------------
@@ -229,20 +409,59 @@ __global__ void __launch_bounds__(256)
 
 // ---- e3 ----------------------------------------------------------------
 
+constexpr int kE3Slots = 4;  // slots per block: 256 threads, 64 per slot
+
 __global__ void __launch_bounds__(256)
-    e3_kernel(const int* __restrict__ run_start, const float* __restrict__ v,
+    e3_kernel(const int* __restrict__ idx, int n, const float* __restrict__ v,
               float* __restrict__ acc) {
-  const int slot = blockIdx.x;
-  const int n = run_start[slot + 1] - run_start[slot];
-  const float4 x = reinterpret_cast<const float4*>(v)[threadIdx.x];
-  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int j = 0; j < n; ++j) {
-    s.x += x.x;
-    s.y += x.y;
-    s.z += x.z;
-    s.w += x.w;
+  __shared__ int warp_counts[8][kE3Slots];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const unsigned slot0 = blockIdx.x * kE3Slots;
+  int cnt[kE3Slots] = {};
+  // An entry p counts for slot slot0 + d when p - slot0 == d < kE3Slots
+  // (unsigned: negative indices and those past the last slot match none).
+  auto count = [&](int p) {
+    const unsigned d = static_cast<unsigned>(p) - slot0;
+#pragma unroll
+    for (int k = 0; k < kE3Slots; ++k) cnt[k] += d == static_cast<unsigned>(k);
+  };
+  const int n4 = n >> 2;
+  for (int j = tid; j < n4; j += 256) {
+    const int4 q = reinterpret_cast<const int4*>(idx)[j];
+    count(q.x);
+    count(q.y);
+    count(q.z);
+    count(q.w);
   }
-  reinterpret_cast<float4*>(acc + static_cast<size_t>(slot) * 1024)[threadIdx.x] = s;
+  for (int j = 4 * n4 + tid; j < n; j += 256) count(idx[j]);
+#pragma unroll
+  for (int k = 0; k < kE3Slots; ++k) {
+    const int s = __reduce_add_sync(0xffffffffu, cnt[k]);
+    if (lane == 0) warp_counts[warp][k] = s;
+  }
+  __syncthreads();
+  const int k = tid >> 6, q = tid & 63;  // slot slot0 + k, float4s q + 64u
+  int adds = 0;
+#pragma unroll
+  for (int w = 0; w < 8; ++w) adds += warp_counts[w][k];
+  float4 x[4], s[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    x[u] = reinterpret_cast<const float4*>(v)[q + 64 * u];
+    s[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  for (int j = 0; j < adds; ++j) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      s[u].x = __fadd_rn(s[u].x, x[u].x);
+      s[u].y = __fadd_rn(s[u].y, x[u].y);
+      s[u].z = __fadd_rn(s[u].z, x[u].z);
+      s[u].w = __fadd_rn(s[u].w, x[u].w);
+    }
+  }
+  float4* dst = reinterpret_cast<float4*>(acc + static_cast<size_t>(slot0 + k) * 1024);
+#pragma unroll
+  for (int u = 0; u < 4; ++u) dst[q + 64 * u] = s[u];
 }
 
 // ---- e12 ---------------------------------------------------------------
@@ -302,12 +521,17 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-template <int T, bool kMma>
-int launch_dot(const float* at, const float* bp, float* acc, int la, int lb,
-               int acc_cols, int reps, cudaStream_t st) {
-  const dim3 grid((lb + T - 1) / T, (la + T - 1) / T);
-  micro_dot_kernel<T, kMma><<<grid, (T / 4) * (T / 4), 0, st>>>(at, bp, acc, la, lb,
-                                                               acc_cols, reps);
+using DotKernel = void (*)(const float*, const float*, float*, int, int, int, int, int);
+
+// Launches a dot kernel whose blocks of `threads` threads each own a bm x bn
+// tile of acc, on as many tiles as cover acc.
+int launch_dot(DotKernel kernel, int bm, int bn, int threads, const float* at,
+               const float* bp, float* acc, int la, int lb, int acc_rows, int acc_cols,
+               int reps, cudaStream_t stream) {
+  const int grid_x = (acc_cols + bn - 1) / bn, grid_y = (acc_rows + bm - 1) / bm;
+  if (grid_y > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  kernel<<<dim3(grid_x, grid_y), threads, 0, stream>>>(at, bp, acc, la, lb, acc_rows,
+                                                        acc_cols, reps);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -317,24 +541,27 @@ extern "C" {
 
 // Every entry launches on `stream` and returns cudaGetLastError() (0 on
 // success).  Pointers are device memory, f32 unless named int; `acc` is
-// zero on entry and row-major with `acc_cols` columns.
+// row-major with `acc_cols` columns.
 
-// micro "wide" (quad == 0) or "quad": at [32, la], bp [32, lb].
+// micro "wide" and "quad": at [32, la], bp [32, lb] -> the whole acc
+// [acc_rows >= la, acc_cols >= lb], its padding written zero.  Each tier
+// has one tiling: "highest" 4x4 FFMA tiles in 16 x 64 blocks of 2 warps,
+// two reps a step, B's depths 0-15 in registers; "default" 2 warps of
+// 16 x 32 mma tiles in 32 x 32 blocks.
 int hbsm_micro_dot(const float* at, const float* bp, float* acc, int la, int lb,
-                   int acc_cols, int reps, int quad, int precision, void* stream) {
+                   int acc_rows, int acc_cols, int reps, int precision, void* stream) {
+  if (la > acc_rows || lb > acc_cols) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (la == 0 || lb == 0) return 0;
-  if (precision != 0 && precision != 2) return static_cast<int>(cudaErrorInvalidValue);
-  const bool mma = precision == 2;
-  if (quad) {
-    return mma ? launch_dot<128, true>(at, bp, acc, la, lb, acc_cols, reps, st)
-               : launch_dot<128, false>(at, bp, acc, la, lb, acc_cols, reps, st);
-  }
-  return mma ? launch_dot<32, true>(at, bp, acc, la, lb, acc_cols, reps, st)
-             : launch_dot<32, false>(at, bp, acc, la, lb, acc_cols, reps, st);
+  if (precision == 0)
+    return launch_dot(dot_ffma_kernel<4, 4, 4, 16, 2, 16>, 16, 64, 64, at, bp, acc, la, lb,
+                      acc_rows, acc_cols, reps, st);
+  if (precision == 2)
+    return launch_dot(dot_mma_lane_kernel<1, 4, 2>, 32, 32, 64, at, bp, acc, la, lb,
+                      acc_rows, acc_cols, reps, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// micro "flatten" on acc [>= 256, acc_cols >= 128].
+// micro "flatten" on acc [>= 256, acc_cols >= 128], zero on entry.
 int hbsm_micro_flatten(float* acc, int acc_cols, int reps, void* stream) {
   micro_flatten_kernel<<<64, 256, 0, static_cast<cudaStream_t>(stream)>>>(acc, acc_cols,
                                                                           reps);
@@ -348,11 +575,13 @@ int hbsm_e2(const float* x, float* out, int variant, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// e3: run_start int [n_slots + 1], v [8, 128], acc [n_slots, 8, 128].
-int hbsm_e3(const int* run_start, const float* v, float* acc, int n_slots,
-            void* stream) {
-  if (n_slots == 0) return 0;
-  e3_kernel<<<n_slots, 256, 0, static_cast<cudaStream_t>(stream)>>>(run_start, v, acc);
+// e3: idx int [n] (16-byte aligned), v [8, 128] -> the whole acc [n_slots,
+// 8, 128]; n_slots a multiple of kE3Slots.
+int hbsm_e3(const int* idx, int n, const float* v, float* acc, int n_slots, void* stream) {
+  if (n < 0 || n_slots <= 0 || n_slots % kE3Slots)
+    return static_cast<int>(cudaErrorInvalidValue);
+  e3_kernel<<<n_slots / kE3Slots, 256, 0, static_cast<cudaStream_t>(stream)>>>(idx, n, v,
+                                                                               acc);
   return static_cast<int>(cudaGetLastError());
 }
 

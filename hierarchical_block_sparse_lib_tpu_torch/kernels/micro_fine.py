@@ -17,7 +17,10 @@ accumulator, returns its ``[8, 128]`` alone).  The TPU kernels leave
 `micro`'s accumulator uninitialised; here every accumulator starts at
 zero.  Sums into one accumulator element run serially, in rep order for
 `micro` and in ascending i or (e, t) order for `e3` and `e12`, in the
-kernel and in the plain versions alike.
+kernel and in the plain versions alike.  `e3` adds the same block for
+every entry, so its slots depend only on how many entries each has: its
+kernel counts them in one launch instead of sorting.  `micro` "wide" and
+"quad" are one function and run one kernel on one tiling.
 
 Precision: "highest" is f32 throughout; "default" is one bf16 pass
 (operands rounded to bf16, exact products, f32 sums).
@@ -185,6 +188,16 @@ def _check_e12(a_wide, panel, idx):
 
 
 _LIB = None
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# The C entries of micro_fine.cu and their arguments (pointers and the
+# stream as c_void_p, ints as c_int).
+SIGNATURES = {
+    "hbsm_micro_dot": [_P] * 3 + [_I] * 6 + [_P],
+    "hbsm_micro_flatten": [_P, _I, _I, _P],
+    "hbsm_e2": [_P, _P, _I, _P],
+    "hbsm_e3": [_P, _I, _P, _P, _I, _P],
+    "hbsm_e12": [_P] * 5 + [_I] * 4 + [_P],
+}
 
 
 def _kernel_lib():
@@ -193,18 +206,11 @@ def _kernel_lib():
         from hierarchical_block_sparse_lib_tpu_torch.kernels import _build
 
         lib = _build.load("micro_fine")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        for name, args in (
-            ("hbsm_micro_dot", [p, p, p] + [i] * 6 + [p]),
-            ("hbsm_micro_flatten", [p, i, i, p]),
-            ("hbsm_e2", [p, p, i, p]),
-            ("hbsm_e3", [p, p, p, i, p]),
-            ("hbsm_e12", [p] * 5 + [i] * 4 + [p]),
-        ):
+        for name, args in SIGNATURES.items():
             fn = getattr(lib, name)
-            fn.restype, fn.argtypes = i, args
+            fn.restype, fn.argtypes = _I, args
         lib.hbsm_cuda_error_string.restype = ctypes.c_char_p
-        lib.hbsm_cuda_error_string.argtypes = [i]
+        lib.hbsm_cuda_error_string.argtypes = [_I]
         _LIB = lib
     return _LIB
 
@@ -224,18 +230,25 @@ def _on_card(name: str, *tensors) -> torch.device:
 
 
 def _launch(name: str, device, fn, *args) -> None:
+    """Launch `fn` on the current stream of `device`, switching the current
+    device only when it is another; raise on any CUDA error."""
     lib = _kernel_lib()
-    with torch.cuda.device(device):
-        err = getattr(lib, fn)(*args, torch.cuda.current_stream(device).cuda_stream)
+    if device.index != torch.cuda.current_device():
+        with torch.cuda.device(device):
+            return _launch(name, device, fn, *args)
+    # The raw stream handle, from the private entry that torch.compile's
+    # generated code calls (torch 2.x): building a torch.cuda.Stream object
+    # instead costs a small kernel's whole launch again on the host.
+    err = getattr(lib, fn)(*args, torch._C._cuda_getCurrentRawStream(device.index))
     if err != 0:
         raise RuntimeError(f"{name} launch failed: {lib.hbsm_cuda_error_string(err).decode()}")
 
 
 def micro(at, bp, mode: str, precision: str = "highest", reps: int = REPS):
     """acc += sum_{i < reps} (at * s_i)^T bp ("wide": one product over the
-    panel; "quad": the same in 128x128 tiles), or the flat-block relayout
-    ("flatten"), into a zero accumulator [max(LA, 256), max(LB, 128)].
-    Returns (acc[0:8, 0:128], acc)."""
+    panel; "quad": the same sum, on the TPU in 128x128 tiles), or the
+    flat-block relayout ("flatten"), into a zero accumulator [max(LA, 256),
+    max(LB, 128)].  Returns (acc[0:8, 0:128], acc)."""
     if at.device.type == "cpu":
         return micro_reference(at, bp, mode, precision, reps)
     la, lb, acc_shape = _micro_shapes(at, bp, mode)
@@ -243,12 +256,13 @@ def micro(at, bp, mode: str, precision: str = "highest", reps: int = REPS):
     if at.dtype != torch.float32 or bp.dtype != torch.float32:
         raise ValueError("micro needs f32 operands")
     device = _on_card("micro", at, bp)
-    acc = torch.zeros(acc_shape, dtype=torch.float32, device=device)
     if mode == "flatten":
+        acc = torch.zeros(acc_shape, dtype=torch.float32, device=device)
         _launch("micro", device, "hbsm_micro_flatten", acc.data_ptr(), acc_shape[1], reps)
-    else:
+    else:  # the kernel writes every element of acc
+        acc = torch.empty(acc_shape, dtype=torch.float32, device=device)
         _launch("micro", device, "hbsm_micro_dot", at.data_ptr(), bp.data_ptr(),
-                acc.data_ptr(), la, lb, acc_shape[1], reps, int(mode == "quad"), tier)
+                acc.data_ptr(), la, lb, *acc_shape, reps, tier)
     micro.launches += 1
     return acc[0:8, 0:128], acc
 
@@ -272,16 +286,14 @@ def e2(x, variant: str):
 def e3(idx, v):
     """acc = 0; acc[8 idx[i] : 8 idx[i] + 8] += v for i < len(idx), serially
     (idx in [0, 512); others are dropped).  Returns (acc[0:8], acc [4096,
-    128])."""
+    128]).  One kernel launch, nothing else on the device."""
     if v.device.type == "cpu":
         return e3_reference(idx, v)
     _check_e3(idx, v)
     device = _on_card("e3", idx, v)
-    n_slots = ACC_ROWS // 8
-    _, run_start = _runs(idx, n_slots)
     acc = torch.empty((ACC_ROWS, 128), dtype=torch.float32, device=device)
-    _launch("e3", device, "hbsm_e3", run_start.data_ptr(), v.data_ptr(), acc.data_ptr(),
-            n_slots)
+    _launch("e3", device, "hbsm_e3", idx.data_ptr(), idx.shape[0], v.data_ptr(),
+            acc.data_ptr(), ACC_ROWS // 8)
     e3.launches += 1
     return acc[0:8], acc
 

@@ -4,7 +4,7 @@ counterpart of ``scripts/micro_fine_kernel.py``.
   E1a  `micro` "wide": sum over R reps of [32, LA]^T [32, LB] at LA = LB =
        832 (26 blocks of 32, the B2 mean panel), "highest" and "default",
        against one torch.matmul of the R reps stacked along K.
-  E1b  `micro` "quad": the same sum in 128x128 tiles, at 896.
+  E1b  `micro` "quad": the same sum (on the TPU in 128x128 tiles), at 896.
   E2   `micro` "flatten": the flat [8, 128] relayout of 16 sub-blocks of a
        128x128 tile per rep.
   E5   torch gather of flat [P, 8, 128] blocks by a permutation.
@@ -14,8 +14,10 @@ counterpart of ``scripts/micro_fine_kernel.py``.
        gathers, depths drawn from B2's histogram.
 
 Each kernel is held against its plain version on the same inputs, then
-timed in turns with it (CUDA events, `utils/profiling.py`); each rate is
-printed beside the card's name and power limit.  Run on a CUDA card:
+timed in turns with it and with its one-call library equivalent where
+there is one (CUDA events, `utils/profiling.py::in_turns`), so that every
+factor comes from one run; each rate is printed beside the card's name
+and power limit.  Run on a CUDA card:
 
     python -m hierarchical_block_sparse_lib_tpu_torch.scripts.micro_fine_kernel
 
@@ -26,6 +28,7 @@ CPU (the plain versions; no time is measured there).
 from __future__ import annotations
 
 import dataclasses
+import statistics
 
 import numpy as np
 import torch
@@ -35,11 +38,10 @@ from hierarchical_block_sparse_lib_tpu_torch.kernels.pallas_gemm_fine import (
     _ieee_fp32_matmul,
 )
 from hierarchical_block_sparse_lib_tpu_torch.utils.profiling import (
-    alternate,
     bound,
     card_line,
     card_time_ms,
-    cuda_time_ms,
+    in_turns,
     log,
 )
 
@@ -93,8 +95,11 @@ def _tensors(x):
 
 def check_and_time(name, kernel_fn, plain_fn, device, tol, bnd, library_fn=None):
     """Hold kernel_fn()'s tensors against plain_fn()'s within `tol`
-    relative to max|plain| (0: bitwise), then, on the card, time both in
-    turns and the one-call library yardstick.  Returns a record."""
+    relative to max|plain| (0: bitwise), then, on the card, time the
+    kernel, the plain version and the one-call library yardstick in turns
+    (`in_turns`: in that order, then in reverse).  Returns a record: ms,
+    plain_ms and library_ms the medians of the two turns, `four` (kernel,
+    kernel, plain, plain) and `library_two`."""
     got, want = _tensors(kernel_fn()), _tensors(plain_fn())
     abs_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
     scale = max(float(w.abs().max()) for w in want) or 1.0
@@ -102,12 +107,18 @@ def check_and_time(name, kernel_fn, plain_fn, device, tol, bnd, library_fn=None)
     if not (abs_err / scale <= tol and (tol or bitwise)):
         raise AssertionError(f"{name}: kernel vs plain rel err {abs_err / scale:.3e} > {tol}")
     rec = dict(name=name, max_abs_err=abs_err, rel_err=abs_err / scale, bitwise=bitwise,
-               ms=None, plain_ms=None, four=None, library_ms=None,
+               ms=None, plain_ms=None, four=None, library_ms=None, library_two=None,
                bound_ms=bnd[0], bound_by=bnd[1])
     if on_card(device):
-        rec["ms"], rec["plain_ms"], rec["four"] = alternate(kernel_fn, plain_fn)
+        fns = {"kernel": kernel_fn, "plain": plain_fn}
         if library_fn is not None:
-            rec["library_ms"] = cuda_time_ms(library_fn)[0]
+            fns["library"] = library_fn
+        t = in_turns(fns)
+        rec["ms"], rec["plain_ms"] = statistics.median(t["kernel"]), statistics.median(t["plain"])
+        rec["four"] = (*t["kernel"], *t["plain"])
+        if library_fn is not None:
+            rec["library_two"] = t["library"]
+            rec["library_ms"] = statistics.median(t["library"])
     return rec
 
 
@@ -115,7 +126,8 @@ def log_record(rec, rate: str = "") -> None:
     four = rec["four"]
     times = ("kernel not measured" if four is None else
              f"kernel {four[0]:.4f} / {four[1]:.4f} ms, plain {four[2]:.4f} / {four[3]:.4f} ms")
-    lib = "" if rec["library_ms"] is None else f", library {rec['library_ms']:.4f} ms"
+    lib = ("" if rec["library_two"] is None else
+           f", library {rec['library_two'][0]:.4f} / {rec['library_two'][1]:.4f} ms")
     log(f"E[{rec['name']}]: {times}{lib}{rate}; bound {rec['bound_ms']:.5f} ms "
         f"({rec['bound_by']}); kernel vs plain max abs err {rec['max_abs_err']:.3e} "
         f"(rel {rec['rel_err']:.3e})")

@@ -1,0 +1,93 @@
+"""Time the micro kernels of two checkouts of this repository on one CUDA
+card, in turns: the other checkout, this one, this one, the other.
+
+    python hierarchical_block_sparse_lib_tpu_torch/scripts/time_micro_designs.py OTHER_ROOT
+
+OTHER_ROOT holds another checkout (for example the parent commit,
+unpacked with ``git archive``); each turn is a process of its own that
+imports the port from one root, builds that root's kernels into that
+root's ``build/``, and times, with that root's `utils.profiling.cuda_time_ms`,
+the calls of `micro` "wide" at 832 and "quad" at 896 at both tiers, `e3`
+at R3 = 4096 and `e2` "reshape" through the wrappers every checkout has.
+Prints one JSON line per turn and both designs' medians beside the card's
+name and power limit.  Exits non-zero without a card.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+THIS_ROOT = os.path.dirname(os.path.dirname(HERE))
+
+
+def measure(root: str) -> dict:
+    """name -> ms per call (median of 7 after 2 warm-ups), with the port
+    imported from `root`."""
+    sys.path.insert(0, root)
+    import numpy as np
+    import torch
+
+    from hierarchical_block_sparse_lib_tpu_torch.kernels import micro_fine as mf
+    from hierarchical_block_sparse_lib_tpu_torch.utils.profiling import cuda_time_ms
+
+    rng = np.random.default_rng(0)
+
+    def normal(*shape, scale=0.1):
+        x = (rng.standard_normal(shape) * scale).astype(np.float32)
+        return torch.from_numpy(x).cuda()
+
+    at, bp, atq, bpq = normal(32, 832), normal(32, 832), normal(32, 896), normal(32, 896)
+    idx = torch.from_numpy(rng.integers(0, 500, 4096).astype(np.int32)).cuda()
+    v, x = normal(8, 128, scale=1.0), normal(32, 32, scale=1.0)
+    calls = {
+        "micro wide 832 highest": lambda: mf.micro(at, bp, "wide"),
+        "micro quad 896 highest": lambda: mf.micro(atq, bpq, "quad"),
+        "micro wide 832 default": lambda: mf.micro(at, bp, "wide", "default"),
+        "micro quad 896 default": lambda: mf.micro(atq, bpq, "quad", "default"),
+        "e3 R3=4096": lambda: mf.e3(idx, v),
+        "e2 reshape": lambda: mf.e2(x, "reshape"),
+    }
+    return {name: cuda_time_ms(fn)[0] for name, fn in calls.items()}
+
+
+def main(other_root: str) -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("no CUDA card: nothing measured", file=sys.stderr)
+        return 2
+    sys.path.insert(0, THIS_ROOT)
+    from hierarchical_block_sparse_lib_tpu_torch.utils.profiling import card_line
+
+    roots = {"other": os.path.abspath(other_root), "this": THIS_ROOT}
+    turns = []
+    for label in ("other", "this", "this", "other"):
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--measure",
+                               roots[label]], capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            print(proc.stdout + proc.stderr, file=sys.stderr)
+            return proc.returncode
+        rec = json.loads(proc.stdout.strip().splitlines()[-1])
+        print(json.dumps({"turn": label, "root": roots[label], "call_ms": rec}))
+        turns.append((label, rec))
+    print(f"{card_line()}: call ms (CUDA events, median of 7 after 2 warm-ups), "
+          f"turns other, this, this, other")
+    for name in turns[0][1]:
+        for label in ("other", "this"):
+            calls = " / ".join(f"{r[name]:.4f}" for lab, r in turns if lab == label)
+            print(f"  {name:24s} {label:5s} {calls} ms")
+    return 0
+
+
+if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--measure":
+        print(json.dumps(measure(sys.argv[2])))
+        sys.exit(0)
+    if len(sys.argv) != 2:
+        print(__doc__, file=sys.stderr)
+        sys.exit(2)
+    sys.exit(main(sys.argv[1]))
