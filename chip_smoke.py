@@ -8,7 +8,11 @@ final line):
 
 1. versions, and the card's name and power limit (nvidia-smi);
 2. build the Hopper kernels from the sources in this checkout, one nvcc
-   per source, all started together;
+   per source, all started together; print the two 128-tile kernels'
+   launches per data type and tier (shared bytes, blocks per SM,
+   registers, spills) and the tensor-core instructions in their SASS
+   (HMMA from mma.sync, HGMMA from wgmma, counted by cuobjdump), which
+   every instantiation must have;
 3. each kernel vs its plain PyTorch version at small shapes: the fine
    kernel at b in {16, 32, 64} x the three precision tiers (rectangular
    alpha != 1 operands with empty rows, the zero tail), then its edges at
@@ -21,7 +25,11 @@ final line):
    product reaches and a tail; both norm kernels, f32 and bf16; the
    pair-stream kernel at b in {128, 256} x the three tiers, bf16, a
    carry-in, padding pairs and an empty pair list; the v1 call chunked at
-   64 pairs against one chunk, bitwise; the row-group kernel at b in
+   64 pairs against one chunk, bitwise; both 128-tile kernels at their
+   ring's edges (slots with 0, 1, 3, 4 and 7 products against a 3-slice
+   ring, an A row of 300 entries, SpAMM skipping all of a slot's products,
+   triu with the aligned accumulator, the stream at b=256 with a
+   carry-in); the row-group kernel at b in
    {128, 256} x the three tiers and bf16, with a partial last group, a
    rectangular product and union slots; spgemm on the group kernel with a
    fused accumulate, and an undersized slab cap that must be flagged;
@@ -43,7 +51,11 @@ final line):
    path; launch counts read around the whole path;
 8. the row-panel and norm kernels vs their plain versions at B3's
    step-2 shapes, and CUDA-event times of the scans, the kernels, their
-   plain versions and one library call;
+   plain versions and one library call; the spread of products per slot
+   at step 2; rows_spgemm at each step's shape, the call beside its
+   kernel's profiler device time per launch and both bounds (FP32 FFMA,
+   3xTF32); a torch.bmm over step 2's gathered pairs with TF32 off, as a
+   yardstick;
 9. purification at 1024^2 (tau=1e-7, 40 steps) against the spectral
    projector from an f64 eigendecomposition;
 10. a torch.profiler trace of 10 planned B3 scans: device time by
@@ -62,7 +74,9 @@ final line):
     without row caps, on the pair-stream kernel: counters, a repeated
     call bitwise equal, the product against the port's float64 path; the
     v1 call on the same pairs; both against their plain versions, with
-    times and a torch.profiler breakdown of the planned product;
+    times, each call's kernel device time per launch and both bounds, a
+    torch.bmm yardstick over the gathered pairs, and a torch.profiler
+    breakdown of the planned product;
 14. the fine kernel's micro-benchmarks: the four micro kernels (micro,
     e2, e3, e12) against their plain versions at small shapes (every
     mode, recipe, tier and do_adds; micro at reps 0, 1, 5 on shapes that
@@ -199,6 +213,60 @@ def check_close(name, got, want, tol):
     if not torch.allclose(got, want, rtol=tol, atol=tol):
         raise AssertionError(f"{name}: max abs err {err:.3e} over tol {tol}")
     return err
+
+
+def sass_counts(name):
+    """Per kernel function of the built library `name`: its tensor-core
+    instructions (HMMA from mma.sync, HGMMA from wgmma) and its FFMA, read
+    from ``cuobjdump -sass``."""
+    import os
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    from hierarchical_block_sparse_lib_tpu_torch.kernels import _build
+
+    tool = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "cuobjdump")
+    out = subprocess.run([tool, "-sass", _build.library_path(name)], capture_output=True,
+                         text=True, check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = [0, 0, 0]
+        elif fn is not None:
+            counts[fn][0] += " HMMA." in line
+            counts[fn][1] += " HGMMA." in line
+            counts[fn][2] += " FFMA " in line
+    return counts
+
+
+def tile_kernel_report():
+    """Phase 2: the tensor-core kernels' launches per data type and tier
+    (shared bytes, blocks per SM, registers, spills), and the mma
+    instructions in their SASS, which show that the tensor cores are
+    reached."""
+    import torch
+
+    from hierarchical_block_sparse_lib_tpu_torch.kernels import pallas_gemm_rows as pr
+    from hierarchical_block_sparse_lib_tpu_torch.kernels import pallas_gemm_stream as ps
+
+    for label, mod, tiers in (("rows_spgemm", pr, ("highest", "high", "default")),
+                              ("stream", ps, ("highest", "default"))):
+        for dtype, prec in [(torch.float32, t) for t in tiers] + [(torch.bfloat16, "highest")]:
+            print(f"[build] {label} {str(dtype)[6:]} {prec}: {mod.launch_config(dtype, prec)}")
+    # Template arguments in the mangled names: data type and tier.
+    tiers = {"IfLi0E": "f32 highest", "IfLi1E": "f32 high", "IfLi2E": "f32 default",
+             "I13__nv_bfloat16Li0E": "bf16"}
+    for name, kernel in (("gemm_rows", "rows_spgemm_kernel"), ("gemm_stream", "stream_kernel"),
+                         ("gemm_groups", "groups_kernel")):
+        for fn, (hmma, hgmma, ffma) in sass_counts(name).items():
+            if kernel not in fn:
+                continue
+            tier = next(v for k, v in tiers.items() if kernel + k in fn)
+            print(f"[build] SASS {kernel:18s} {tier:11s}: {hmma:4d} HMMA {hgmma:4d} HGMMA "
+                  f"{ffma:5d} FFMA")
+            if name != "gemm_groups" and hmma + hgmma == 0:
+                raise AssertionError(f"{kernel} {tier}: no tensor-core instruction in its SASS")
 
 
 def small_shapes():
@@ -472,6 +540,121 @@ def small_stream():
         raise AssertionError(f"gather_gemm_accumulate chunked: {pc} pairs, rel err {err:.3e}")
     print(f"  gather_gemm_accumulate: {pc} pairs in {-(-(pc + 5) // 64)} chunks of 64 "
           f"== one chunk, bitwise; kernel-vs-plain rel err={err:.3e}")
+
+
+def explicit_pattern(rows, nbr, nbc, b, seed):
+    """A BlockMatrix whose block row i holds the block columns rows[i]
+    (N(0,1) blocks from a numpy seed)."""
+    ids = np.array(sorted(i * nbc + k for i, cols in enumerate(rows) for k in cols),
+                   dtype=np.int64)
+    return block_matrix(ids, nbr, nbc, b, np.random.default_rng(seed))
+
+
+# Products per slot at the tensor-core engine's ring edges (gemm_tile.cuh
+# kStages = 3): none, one, as many as the ring has stages, one more, and
+# more than twice as many.
+RING_PRODUCTS = (0, 1, 3, 4, 7)
+
+
+def small_ring_edges():
+    """Phase 3: the two tensor-core kernels at their ring's edges: slots
+    with RING_PRODUCTS products, an A row of more than 256 entries (two
+    passes of the hit search), SpAMM skipping every product of a slot,
+    triu with the aligned accumulator, and the stream at b=256 with a
+    carry-in."""
+    import torch
+
+    import hierarchical_block_sparse_lib_tpu_torch as hbsm
+    from hierarchical_block_sparse_lib_tpu_torch.kernels import pallas_gemm_stream as ps
+    from hierarchical_block_sparse_lib_tpu_torch.kernels.pallas_gemm_rows import (
+        rows_spgemm,
+        rows_spgemm_reference,
+    )
+    from hierarchical_block_sparse_lib_tpu_torch.ops.spgemm import plan_spgemm_ex
+
+    b = 128
+
+    def rows_case(name, A, B, extra=(), precisions=("highest", "high", "default", "bf16"),
+                  **opts):
+        pc, oc, mbr, mcr = plan_spgemm_ex(A, B)
+        ext = torch.tensor(extra, dtype=torch.int32, device=DEVICE)
+        plan = hbsm.make_plan(A, B, pc, accum_ids=ext, out_cap=oc + len(extra) + 2)
+        out_cap = oc + len(extra) + 2
+        counts = torch.bincount(plan.seg[:pc].long(), minlength=out_cap)[:out_cap]
+        if "acc_data" in opts:
+            opts["acc_data"] = torch.randn((out_cap, b, b), device=DEVICE)
+        for prec in precisions:
+            ad, bd, tier = A.data, B.data, prec
+            if prec == "bf16":
+                ad, bd, tier = ad.bfloat16(), bd.bfloat16(), "highest"
+            args = (A.ids, ad, B.ids, bd, plan.out_ids, A.nb_rows, B.nb_rows, B.nb_cols,
+                    out_cap, mbr, mcr)
+            got = rows_spgemm(*args, precision=tier, **opts)
+            want = rows_spgemm_reference(*args, precision=tier, **opts)
+            torch.cuda.synchronize()
+            err = rel_err(got, want)
+            if not err <= ROWS_TOL:
+                raise AssertionError(f"rows edge {name} {prec}: rel err {err:.3e} > {ROWS_TOL}")
+            print(f"  rows edge {name:34s} {prec:8s} kernel-vs-plain rel err={err:.3e}")
+        return plan, counts, got
+
+    # Slot (i, j) has RING_PRODUCTS[i] products for every j; the row with
+    # none holds union slots only.
+    rows = [list(range(n)) for n in RING_PRODUCTS]
+    A = explicit_pattern(rows, len(rows), 8, b, seed=41)
+    B = explicit_pattern([range(3)] * 8, 8, 3, b, seed=42)
+    _, counts, _ = rows_case("products per slot", A, B, extra=(0, 2))
+    want = sorted(set(RING_PRODUCTS))
+    if sorted(set(counts.tolist())) != want:
+        raise AssertionError(f"rows edge: products per slot {counts.tolist()}, want {want}")
+    # An A row of 300 entries: hits in both 256-entry passes.
+    A = explicit_pattern([range(300), [7, 299]], 2, 300, b, seed=43)
+    B = explicit_pattern([[0, 1] if k in (3, 7, 100, 255, 256, 260, 299) else []
+                          for k in range(300)], 300, 2, b, seed=44)
+    rows_case("A row of 300 entries", A, B, precisions=("highest", "bf16"))
+    # SpAMM skipping every product of row 1's slots; triu with acc_data.
+    A = explicit_pattern([range(4), range(5), range(3)], 3, 8, b, seed=45)
+    B = explicit_pattern([range(3)] * 8, 8, 3, b, seed=46)
+    an2 = A.data.square().sum((1, 2))
+    an2[(A.ids // 8 == 1) & (A.ids != hbsm.SENTINEL)] = 0.0
+    bn2 = B.data.square().sum((1, 2))
+    plan, _, got = rows_case("SpAMM skips all of row 1", A, B, precisions=("highest",),
+                             a_norms2=an2, b_norms2=bn2, tau2=1e-30)
+    row1 = (plan.out_ids // 3 == 1) & (plan.out_ids != hbsm.SENTINEL)
+    if torch.count_nonzero(got[row1]) or not bool(row1.any()):
+        raise AssertionError("rows edge: a slot whose products are all skipped is not zero")
+    rows_case("triu + acc_data", A, B, precisions=("highest", "default"), triu=True,
+              acc_data=True)
+
+    # The stream kernel: explicit pair lists with RING_PRODUCTS pairs per
+    # slot, at b=128 and at b=256 with a carry-in.
+    g = torch.Generator(device=DEVICE).manual_seed(47)
+    rng = np.random.default_rng(48)
+    for b, use_cin in ((128, False), (256, True)):
+        cap = 9
+        ad = torch.randn((cap, b, b), device=DEVICE, generator=g)
+        bd = torch.randn((cap, b, b), device=DEVICE, generator=g)
+        seg = np.repeat(np.arange(len(RING_PRODUCTS)), RING_PRODUCTS).astype(np.int32)
+        out_cap = len(RING_PRODUCTS)
+        a_idx, b_idx, seg = (torch.from_numpy(x).to(DEVICE) for x in (
+            rng.integers(0, cap, seg.size).astype(np.int32),
+            rng.integers(0, cap, seg.size).astype(np.int32), seg))
+        cin = torch.randn((out_cap, b, b), device=DEVICE, generator=g) if use_cin else None
+        for prec in ("highest", "default", "bf16"):
+            x, y, tier = (ad, bd, prec) if prec != "bf16" else (ad.bfloat16(), bd.bfloat16(),
+                                                                 "highest")
+            args = (x, y, a_idx, b_idx, seg, out_cap)
+            got = ps.gather_gemm_accumulate_stream(*args, precision=tier, cin=cin)
+            want = ps.gather_gemm_accumulate_stream_reference(*args, precision=tier, cin=cin)
+            torch.cuda.synchronize()
+            err = rel_err(got, want)
+            if not err <= ROWS_TOL:
+                raise AssertionError(f"stream edge b={b} {prec}: rel err {err:.3e}")
+            empty = cin[0] if use_cin else torch.zeros_like(got[0])
+            if not torch.equal(got[0], empty):
+                raise AssertionError(f"stream edge b={b} {prec}: the slot with no pair changed")
+            print(f"  stream edge b={b} {prec:8s}{' cin' if use_cin else '    '} pairs per slot "
+                  f"{RING_PRODUCTS} kernel-vs-plain rel err={err:.3e}")
 
 
 def exact_group_caps(A, B, out_ids, g):
@@ -788,11 +971,52 @@ def b3_kernels_and_times(A, prof, plans, card):
     print(f"[time]   einsum('cij,cij->c') at out_cap {prof.out_cap}: {lib_ms:.4f} ms")
     nbytes_norms = ydata.numel() * ydata.element_size()
     cap = ydata.shape[0]
-    rows_bound = bound(2 * 128**3 * pairs2,
-                       x2.data.numel() * 4 + prof.out_cap * 128 * 128 * 4)
+
+    # Products per slot at step 2 (the wave choice rests on them), then
+    # rows_spgemm at each step's shape: the call beside its kernel's
+    # device time per launch, and both bounds.
+    from hierarchical_block_sparse_lib_tpu_torch.kernels.pallas_gemm_rows import launch_config
+
+    per_slot = torch.bincount(p2.seg[:pairs2].long(), minlength=prof.out_cap)[:prof.out_cap]
+    q = torch.quantile(per_slot.double(), torch.tensor([0.1, 0.5, 0.9], dtype=torch.float64,
+                                                       device=per_slot.device)).tolist()
+    cfg = launch_config(torch.float32, "highest")
+    blocks = prof.out_cap * 2  # a block per 128 x 64 half of a slot
+    resident = cfg["blocks_per_sm"] * torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"[B3] products per slot at step 2 over {prof.out_cap} slots: min {int(per_slot.min())}, "
+          f"p10 {q[0]:.0f}, median {q[1]:.0f}, p90 {q[2]:.0f}, max {int(per_slot.max())}, "
+          f"mean {pairs2 / prof.out_cap:.2f}; {int((per_slot == 0).sum())} slots with none; "
+          f"{blocks} blocks over {resident} resident = {blocks / resident:.2f} waves")
+    rows_steps = {}
+    for k in range(3):
+        xk = hbsm.repack(A, prof.cap) if k == 0 else hbsm.purify_scan(A, k, tau, **kw)[0]
+        pk = plans.step(k)
+        kargs = (xk.ids, xk.data, xk.ids, xk.data, pk.out_ids, xk.nb_rows, xk.nb_rows,
+                 xk.nb_cols, prof.out_cap, rc[0], rc[1])
+        call = cuda_time_ms(lambda: rows.rows_spgemm(*kargs))[0]
+        dev = device_profile(f"rows_spgemm at step {k}", lambda: rows.rows_spgemm(*kargs),
+                             10, card, top=3)
+        us = per_call_us(dev, 10, "rows_spgemm_kernel")
+        pairs = int(pk.total)
+        rows_steps[k] = tile_bounds(2 * 128**3 * pairs,
+                                    xk.data.numel() * 4 + prof.out_cap * 128 * 128 * 4, us)
+        b = rows_steps[k]
+        print(f"[time]   rows_spgemm step {k} ({pairs} pairs): call {call:.4f} ms, kernel "
+              f"{us:.1f} us per launch; bounds FP32 {b['bound_fp32_ms']:.4f} ms "
+              f"({pct(b['share_fp32'])}), 3xTF32 {b['bound_route_ms']:.4f} ms "
+              f"({pct(b['share_route'])})")
+    per_step = [rows_steps[k]["device_ms"] for k in (0, 1, 2, 2, 2)]
+    print(f"[time]   rows_spgemm per 5-step scan (steps 0, 1, 2, 2, 2): "
+          + ("not measured" if None in per_step else f"{1e3 * sum(per_step):.1f} us")
+          + " of device time")
+    bmm_ms = bmm_yardstick(x2.data, x2.data, p2.a_idx[:pairs2], p2.b_idx[:pairs2])
+    print(f"[time]   yardstick: torch.bmm over step 2's {pairs2} gathered pairs, TF32 off: "
+          f"{bmm_ms:.4f} ms (the products alone, without their sum into slots)")
     entries = {
         "rows_spgemm": dict(max_abs_err=rows_err, ms=t["rows"][0], plain_ms=t["rows"][1],
-                            bound=rows_bound, library_ms=None),
+                            bound=bound(2 * 128**3 * pairs2, x2.data.numel() * 4
+                                        + prof.out_cap * 128 * 128 * 4, "tf32x3"),
+                            library_ms=None, **rows_steps[2]),
         "norms_and_keep": dict(
             max_abs_err=nk_err, ms=t["norms_and_keep"][0], plain_ms=t["norms_and_keep"][1],
             bound=bound(2 * ydata.numel(), nbytes_norms + cap * 5), library_ms=lib_ms),
@@ -895,6 +1119,37 @@ def per_call_us(dev, reps, match=""):
     launch's record (late in this script, one of ten launches of a
     one-kernel call), which a total over `reps` would count as no time."""
     return sum(t / n * round(n / reps) for k, (t, n) in dev.items() if match in k and n)
+
+
+def tile_bounds(flops, nbytes, device_us, kind="tf32x3"):
+    """The 128-tile kernels' two bounds, FP32 FFMA and the tier's
+    tensor-core route (`kind`, utils/profiling.PEAK_OPS), each with the
+    kernel's share of it (bound / device time per launch)."""
+    fp32, route = bound(flops, nbytes, "fp32"), bound(flops, nbytes, kind)
+    dev_ms = device_us / 1e3 if device_us else None  # None: the profiler saw no launch
+    return dict(bound_fp32_ms=fp32[0], bound_route=kind, bound_route_ms=route[0],
+                route_bound_by=route[1], device_ms=dev_ms,
+                share_fp32=fp32[0] / dev_ms if dev_ms else None,
+                share_route=route[0] / dev_ms if dev_ms else None)
+
+
+def pct(share):
+    """A share as a percentage, or "not measured"."""
+    return "not measured" if share is None else f"{100 * share:.1f}%"
+
+
+def bmm_yardstick(a_data, b_data, a_idx, b_idx):
+    """ms of one torch.bmm over the gathered pairs, TF32 off (the gather is
+    not timed): a yardstick of the dense work, not the same function."""
+    import torch
+
+    ga, gb = a_data[a_idx.long()], b_data[b_idx.long()]
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return cuda_time_ms(lambda: torch.bmm(ga, gb))[0]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
 
 
 def profile_planned_b3(A, prof, plans, card):
@@ -1136,21 +1391,35 @@ def b2_tile128(card):
                    lambda: pallas_gemm.gather_gemm_accumulate_reference(*sargs))
     tsp = in_turns({"planned spgemm": lambda: hbsm.spgemm(A, A, pc, oc, plan=plan)})
     flops = 2 * 128**3 * pc
-    b2t_bound = bound(flops, A.data.numel() * 4 + 3 * pc * 4 + oc * 128 * 128 * 4)
+    nbytes = A.data.numel() * 4 + 3 * pc * 4 + oc * 128 * 128 * 4
+    b2t_bound = bound(flops, nbytes, "tf32x3")
+    sdev = device_profile("stream kernel at B2-tile128",
+                          lambda: ps.gather_gemm_accumulate_stream(*sargs), 10, card, top=3)
+    vdev = device_profile("gather_gemm_accumulate at B2-tile128",
+                          lambda: pallas_gemm.gather_gemm_accumulate(*sargs), 10, card, top=3)
+    s_bounds = tile_bounds(flops, nbytes, per_call_us(sdev, 10, "stream_kernel"))
+    v_bounds = tile_bounds(flops, nbytes, per_call_us(vdev, 10, "stream_kernel"))
+    bmm_ms = bmm_yardstick(A.data, A.data, plan.a_idx[:pc], plan.b_idx[:pc])
     print(f"[time] {card}: B2-tile128, CUDA events, median of 7 after 2 warm-up calls, "
-          f"in turns plain, kernel, kernel, plain; bound {b2t_bound[0]:.4f} ms ({b2t_bound[1]})")
-    for name, (_, _, four) in (("stream kernel", ts), ("gather_gemm_accumulate", tv)):
+          f"in turns plain, kernel, kernel, plain; bounds FP32 "
+          f"{s_bounds['bound_fp32_ms']:.4f} ms, 3xTF32 {b2t_bound[0]:.4f} ms ({b2t_bound[1]})")
+    for name, (_, _, four), b in (("stream kernel", ts, s_bounds),
+                                  ("gather_gemm_accumulate", tv, v_bounds)):
         print(f"[time]   {name:24s} kernel {four[0]:.4f} / {four[1]:.4f} ms "
-              f"({flops / four[0] / 1e9:.1f} TFLOP/s)   plain {four[2]:.4f} / {four[3]:.4f} ms")
+              f"({flops / four[0] / 1e9:.1f} TFLOP/s)   plain {four[2]:.4f} / {four[3]:.4f} ms; "
+              f"kernel {1e3 * (b['device_ms'] or 0):.1f} us per launch: {pct(b['share_fp32'])} "
+              f"of FP32, {pct(b['share_route'])} of 3xTF32")
     t1, t2 = tsp["planned spgemm"]
     print(f"[time]   planned spgemm (auto -> 'pallas') {t1:.4f} / {t2:.4f} ms")
+    print(f"[time]   yardstick: torch.bmm over the {pc} gathered pairs, TF32 off: "
+          f"{bmm_ms:.4f} ms (the products alone, without their sum into slots)")
     device_profile("planned B2-tile128 spgemm (auto -> 'pallas')",
                    lambda: hbsm.spgemm(A, A, pc, oc, plan=plan), 10, card, top=5)
     entries = {
         "gather_gemm_accumulate_stream": dict(max_abs_err=abs_err, ms=ts[0], plain_ms=ts[1],
-                                              bound=b2t_bound, library_ms=None),
+                                              bound=b2t_bound, library_ms=None, **s_bounds),
         "gather_gemm_accumulate": dict(max_abs_err=v1_err, ms=tv[0], plain_ms=tv[1],
-                                       bound=b2t_bound, library_ms=None),
+                                       bound=b2t_bound, library_ms=None, **v_bounds),
     }
     return entries, got["gather_gemm_accumulate_stream"], v1["gather_gemm_accumulate"]
 
@@ -1384,6 +1653,7 @@ def main() -> int:
     for b in (16, 32, 64):  # at B2's B row cap, 44
         for prec in ("highest", "high", "default"):
             print(f"[build] fine_spgemm b={b} {prec}: {launch_config(b, prec, 44)}")
+    tile_kernel_report()
 
     # Phase 3: kernels vs plain versions at small shapes.
     print("[small] kernel vs plain version")
@@ -1391,6 +1661,7 @@ def main() -> int:
     small_rows()
     small_norms()
     small_stream()
+    small_ring_edges()
     small_groups()
 
     # Phase 4: the B2 path at its configured size.
@@ -1516,6 +1787,9 @@ def main() -> int:
             "max_abs_err": e["max_abs_err"], "ms": e["ms"],
             "plain_ms": e["plain_ms"], "bound_ms": e["bound"][0],
             "bound_by": e["bound"][1], "library_ms": e["library_ms"],
+            # The 128-tile kernels: both bounds and the kernel's share of each.
+            **{k: e[k] for k in ("bound_fp32_ms", "bound_route", "bound_route_ms",
+                                 "device_ms", "share_fp32", "share_route") if k in e},
         })
     print(card)
     print(json.dumps({"kernels": rows_out}))

@@ -52,11 +52,17 @@ def _source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def library_path(name: str) -> str:
+    """Where the library built from ``csrc/<name>.cu`` lives (for
+    ``cuobjdump``; `load` builds it)."""
+    return os.path.join(BUILD_DIR, f"lib{name}_{_source_hash()}.so")
+
+
 def load(name: str) -> ctypes.CDLL:
     """The library built from ``csrc/<name>.cu``, building it if needed
     (callers keep the handle: each call hashes the sources again)."""
     src = os.path.join(CSRC_DIR, name + ".cu")
-    so = os.path.join(BUILD_DIR, f"lib{name}_{_source_hash()}.so")
+    so = library_path(name)
     if not os.path.exists(so):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{so}.{os.getpid()}.tmp"

@@ -12,25 +12,32 @@
 //
 // What bounds it: operations.  A 128-wide leaf product is 4.2 MFLOP
 // against 128 KB of operands, so at the B3 shapes (4498 products per
-// multiply) the floor is the FP32 FFMA rate.  One thread block of 256
-// threads owns one output slot.  It finds the slot's products with one
-// binary search per A entry of the row (spread over the threads,
-// compacted in ascending A-entry order with a warp ballot), then for each
-// product stages 32-deep k-slices of A (transposed) and B in shared
-// memory and gives every thread an 8x8 tile of the 128x128 sum, kept in
-// registers: 64 FFMA per 16 values read from shared memory.  Tensor
-// cores (wgmma), TMA staging and panel reuse across a row are left to
-// later work.
+// multiply) the floor is the tensor-core rate of the tier's passes
+// (3xTF32 at "highest": 0.114 ms at step 2, where FP32 FFMA, the first
+// design's engine, had 0.282).  A slot is split into two 128x64 halves,
+// a 256-thread block each, next to each other: 1 288 blocks at B3's 644 slots, 4.9
+// waves of the 264 that fit at two blocks an SM.  Each block finds the
+// slot's products with one binary search per A entry of the row (spread
+// over the threads, compacted in ascending A-entry order with a warp
+// ballot), then runs them through the ring engine of gemm_tile.cuh: their
+// k-slices stream through a three-stage cp.async ring, one barrier a
+// slice, the next product's first slices in flight under this one's
+// math, into wgmma (3xTF32) or mma.sync (bf16 passes) fragments held in
+// registers.  What is left: the passes' issue, about as much time again
+// in the operand stream from L2 (both halves of a slot read all of A's
+// blocks), and the hit search's serial start per slot.
 //
-// Determinism: each slot is written once by one block that accumulates
-// its products serially in ascending A-entry order, in f32 registers,
-// with no atomics, so a fixed structure gives bitwise-equal results.
+// Determinism: each half of a slot is written once by one block that
+// accumulates its products serially in ascending A-entry order, k
+// ascending within a product, in f32 registers, with no atomics, so a
+// fixed structure gives bitwise-equal results.
 //
-// Precision (the reference's three tiers, kernels/mxu.py):
-//   0 "highest": operands as stored (bf16 widened exactly), FP32 FFMA;
+// Precision (the reference's three tiers, kernels/mxu.py; the passes are
+// gemm_tile.cuh's):
+//   0 "highest": f32 data 3xTF32 (wgmma); bf16 data one exact bf16 pass;
 //   1 "high":    f32 operands split as x = hi + lo with hi = bf16(x),
-//                lo = bf16(x - hi); hi*hi + hi*lo + lo*hi per term;
-//   2 "default": f32 operands rounded to bf16, f32 products and sums.
+//                lo = bf16(x - hi); lo*hi + hi*lo + hi*hi, bf16 passes;
+//   2 "default": f32 operands rounded to bf16, one bf16 pass.
 
 #include "gemm_tile.cuh"
 
@@ -39,7 +46,7 @@ namespace {
 using namespace hbsm;
 
 template <typename T, int MODE>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
     rows_spgemm_kernel(const int* __restrict__ out_ids,
                        const int* __restrict__ a_row_start,
                        const int* __restrict__ a_col,
@@ -52,21 +59,24 @@ __global__ void __launch_bounds__(kThreads)
                        const float* __restrict__ tau2_ptr, float tau2_val,
                        float* __restrict__ out, int nbr, int nbc,
                        int b_row_max, int triu) {
-  __shared__ __align__(16) Tile<MODE> s;
+  extern __shared__ __align__(16) unsigned char ring_bytes[];
   __shared__ int hit_e[kThreads];
   __shared__ int hit_q[kThreads];
   __shared__ int warp_hits[kWarps];
+  T* ring = reinterpret_cast<T*>(ring_bytes);
+  // Block 2 slot + half: columns 64 * half + [0, 64) of the slot's block.
+  // A slot's two halves are neighbours in launch order, so the second
+  // finds the slot's operands in L2.
+  const int slot = blockIdx.x / 2;
+  const int col0 = blockIdx.x % 2 * kRingCols;
+  const size_t tile_off = static_cast<size_t>(slot) * kTile * kTile + col0;
 
-  const int ty = threadIdx.x >> 4;
-  const int tx = threadIdx.x & 15;
-  const size_t slot_off = static_cast<size_t>(blockIdx.x) * kTile * kTile;
-
-  const int id = out_ids[blockIdx.x];
+  const int id = out_ids[slot];
   const int i = id / nbc;
   const bool valid = id != kSentinel && i < nbr;
-  float acc[8][8];
-  load_tile(acc, valid && acc_data != nullptr ? acc_data + slot_off : nullptr,
-            kTile, ty, tx);
+  Frags acc;
+  load_frags(acc, valid && acc_data != nullptr ? acc_data + tile_off : nullptr,
+             kTile);
 
   const int j = id - i * nbc;
   // Upper-triangle mode computes only slots with j >= i; the others keep
@@ -90,29 +100,54 @@ __global__ void __launch_bounds__(kThreads)
       }
       // Products in ascending A-entry order.
       const int n_hits = compact_hits(e, q, hit_e, hit_q, warp_hits);
-      for (int h = 0; h < n_hits; ++h) {
-        accumulate_product<T, MODE>(
-            acc, s, a + static_cast<size_t>(hit_e[h]) * kTile * kTile,
-            b + static_cast<size_t>(hit_q[h]) * kTile * kTile, kTile, ty, tx);
-      }
+      accumulate_ring<T, MODE>(acc, ring, n_hits, kTile, [&](int h) {
+        const size_t block = static_cast<size_t>(kTile) * kTile;
+        return Operands<T>{a + hit_e[h] * block, b + hit_q[h] * block + col0};
+      });
     }
   }
   // Every slot is written: SENTINEL tail slots as zeros.
-  store_tile(out + slot_off, acc, kTile, ty, tx);
+  store_frags(out + tile_off, acc, kTile);
 }
 
+struct Args {
+  const int *out_ids, *a_row_start, *a_col, *b_row_start, *b_col;
+  const void *a, *b;
+  const float *acc_data, *an2, *bn2, *tau2_ptr;
+  float tau2_val;
+  float* out;
+  int out_cap, nbr, nbc, b_row_max, triu;
+};
+
+// Launches, or with `info` only reports the launch (launch_info).
 template <typename T, int MODE>
-int launch(const int* out_ids, const int* a_row_start, const int* a_col,
-           const int* b_row_start, const int* b_col, const void* a,
-           const void* b, const float* acc_data, const float* an2,
-           const float* bn2, const float* tau2_ptr, float tau2_val,
-           float* out, int out_cap, int nbr, int nbc, int b_row_max,
-           int triu, cudaStream_t stream) {
-  rows_spgemm_kernel<T, MODE><<<out_cap, kThreads, 0, stream>>>(
-      out_ids, a_row_start, a_col, b_row_start, b_col,
-      static_cast<const T*>(a), static_cast<const T*>(b), acc_data, an2, bn2,
-      tau2_ptr, tau2_val, out, nbr, nbc, b_row_max, triu);
+int launch(const Args& r, cudaStream_t stream, int* info) {
+  auto kernel = rows_spgemm_kernel<T, MODE>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Ring<T>::BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (info != nullptr) return launch_info(kernel, Ring<T>::BYTES, info);
+  if (r.out_cap == 0) return 0;
+  kernel<<<r.out_cap * (kTile / kRingCols), kThreads, Ring<T>::BYTES, stream>>>(
+      r.out_ids, r.a_row_start, r.a_col, r.b_row_start, r.b_col,
+      static_cast<const T*>(r.a), static_cast<const T*>(r.b), r.acc_data, r.an2,
+      r.bn2, r.tau2_ptr, r.tau2_val, r.out, r.nbr, r.nbc, r.b_row_max, r.triu);
   return static_cast<int>(cudaGetLastError());
+}
+
+int dispatch(const Args& r, int is_bf16, int precision, cudaStream_t stream,
+             int* info) {
+  if (is_bf16) return launch<__nv_bfloat16, 0>(r, stream, info);
+  switch (precision) {
+    case 0:
+      return launch<float, 0>(r, stream, info);
+    case 1:
+      return launch<float, 1>(r, stream, info);
+    case 2:
+      return launch<float, 2>(r, stream, info);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -137,32 +172,19 @@ int hbsm_rows_spgemm(const int* out_ids, const int* a_row_start,
                      void* stream) {
   if (out_cap == 0) return 0;
   if (block_size != kTile) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    return launch<__nv_bfloat16, 0>(out_ids, a_row_start, a_col, b_row_start,
-                                    b_col, a, b, acc_data, an2, bn2, tau2_ptr,
-                                    tau2_val, out, out_cap, nbr, nbc,
-                                    b_row_max, triu, st);
-  }
-  switch (precision) {
-    case 0:
-      return launch<float, 0>(out_ids, a_row_start, a_col, b_row_start,
-                              b_col, a, b, acc_data, an2, bn2, tau2_ptr,
-                              tau2_val, out, out_cap, nbr, nbc, b_row_max,
-                              triu, st);
-    case 1:
-      return launch<float, 1>(out_ids, a_row_start, a_col, b_row_start,
-                              b_col, a, b, acc_data, an2, bn2, tau2_ptr,
-                              tau2_val, out, out_cap, nbr, nbc, b_row_max,
-                              triu, st);
-    case 2:
-      return launch<float, 2>(out_ids, a_row_start, a_col, b_row_start,
-                              b_col, a, b, acc_data, an2, bn2, tau2_ptr,
-                              tau2_val, out, out_cap, nbr, nbc, b_row_max,
-                              triu, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const Args r{out_ids, a_row_start, a_col, b_row_start, b_col, a, b,
+               acc_data, an2, bn2, tau2_ptr, tau2_val, out, out_cap, nbr,
+               nbc, b_row_max, triu};
+  return dispatch(r, is_bf16, precision, static_cast<cudaStream_t>(stream),
+                  nullptr);
+}
+
+// The launch `hbsm_rows_spgemm` makes for this data type and tier, without
+// making it: info[0..4] = dynamic shared bytes, resident blocks per SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers and local
+// (spill) bytes per thread, threads per block.  Returns a CUDA error code.
+int hbsm_rows_spgemm_config(int is_bf16, int precision, int* info) {
+  return dispatch(Args{}, is_bf16, precision, nullptr, info);
 }
 
 const char* hbsm_cuda_error_string(int code) {

@@ -12,6 +12,12 @@ a pair runs only when ``an2 * bn2 > tau2`` in f32), `triu` (only slots
 with j >= i get products) and `acc_data` (each valid slot starts from
 the aligned accumulator).  The output is f32.
 
+Tiers on the card (kernels/csrc/gemm_tile.cuh): "highest" on f32 data is
+3xTF32 on wgmma, f32-faithful to about 2^-22 a term; "high" the bf16x3
+split and "default" one bf16 pass, on mma.sync; bf16 data one exact bf16
+pass.  The plain version's "highest" is a full-f32 `bmm`; the two agree
+within 1e-5 of max|C| (chip_smoke.py's gate).
+
 The reference's VMEM budget (`_tier`) and its `nbc <= 4096` SMEM gate are
 TPU memory limits and are not carried over.  A CPU tensor takes
 `rows_spgemm_reference`; a CUDA tensor launches the kernel or raises.
@@ -106,6 +112,14 @@ def rows_spgemm_reference(
 
 
 _LIB = None
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# The C entries of gemm_rows.cu and their arguments (pointers and the
+# stream as c_void_p, ints as c_int, tau2_val as c_float).
+SIGNATURES = {
+    "hbsm_rows_spgemm": [_P] * 11 + [ctypes.c_float, _P] + [_I] * 8 + [_P],
+    "hbsm_rows_spgemm_config": [_I, _I, _P],
+}
+CONFIG_KEYS = ("smem_bytes", "blocks_per_sm", "registers", "local_bytes", "threads")
 
 
 def _kernel_lib():
@@ -114,15 +128,28 @@ def _kernel_lib():
         from hierarchical_block_sparse_lib_tpu_torch.kernels import _build
 
         lib = _build.load("gemm_rows")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.hbsm_rows_spgemm.restype = i
-        lib.hbsm_rows_spgemm.argtypes = (
-            [p] * 11 + [ctypes.c_float, p] + [i] * 8 + [p]
-        )
+        for name, args in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.restype, fn.argtypes = _I, args
         lib.hbsm_cuda_error_string.restype = ctypes.c_char_p
-        lib.hbsm_cuda_error_string.argtypes = [i]
+        lib.hbsm_cuda_error_string.argtypes = [_I]
         _LIB = lib
     return _LIB
+
+
+def launch_config(dtype, precision: str) -> dict:
+    """What a launch for this data type and tier gets, read from the
+    library and the card: dynamic shared bytes, resident blocks per SM,
+    registers and local (spill) bytes per thread, threads per block."""
+    lib = _kernel_lib()
+    info = (ctypes.c_int * len(CONFIG_KEYS))()
+    err = lib.hbsm_rows_spgemm_config(
+        int(dtype == torch.bfloat16), _PRECISIONS[_tier(precision, dtype)],
+        ctypes.cast(info, ctypes.c_void_p),
+    )
+    if err != 0:
+        raise RuntimeError(f"rows_spgemm config: {lib.hbsm_cuda_error_string(err).decode()}")
+    return dict(zip(CONFIG_KEYS, info))
 
 
 def rows_spgemm(

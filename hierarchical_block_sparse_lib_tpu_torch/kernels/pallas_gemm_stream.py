@@ -11,9 +11,11 @@ zero, or the slot's block of the optional carry-in `cin`, which also
 seeds every visited slot (the v1 kernel's chunked accumulate,
 `kernels/pallas_gemm.py`, runs through it).
 
-Tiers: "highest" and "high" are full f32 products (the reference maps
-"high" to HIGHEST for this kernel), "default" rounds f32 operands to bf16
-once and sums in f32; bf16 storage is one exact pass.  `DEPTH` and
+Tiers: "highest" and "high" are f32-faithful products (the reference maps
+"high" to HIGHEST for this kernel): a full-f32 `bmm` in the plain
+version, 3xTF32 on wgmma in the kernel (kernels/csrc/gemm_tile.cuh);
+"default" rounds f32 operands to bf16 once and sums in f32; bf16 storage
+is one exact pass.  `DEPTH` and
 `CHUNK` are the TPU kernel's DMA-queue and SMEM-window sizes: `chunk=` is
 accepted for the reference's signature and ignored.
 
@@ -80,6 +82,13 @@ def gather_gemm_accumulate_stream_reference(
 
 
 _LIB = None
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# The C entries of gemm_stream.cu and their arguments (pointers and the
+# stream as c_void_p, ints as c_int).
+SIGNATURES = {
+    "hbsm_stream_gemm": [_P] * 7 + [_I] * 6 + [_P],
+    "hbsm_stream_gemm_config": [_I, _I, _P],
+}
 
 
 def _kernel_lib():
@@ -88,13 +97,29 @@ def _kernel_lib():
         from hierarchical_block_sparse_lib_tpu_torch.kernels import _build
 
         lib = _build.load("gemm_stream")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.hbsm_stream_gemm.restype = i
-        lib.hbsm_stream_gemm.argtypes = [p] * 7 + [i] * 6 + [p]
+        for name, args in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.restype, fn.argtypes = _I, args
         lib.hbsm_cuda_error_string.restype = ctypes.c_char_p
-        lib.hbsm_cuda_error_string.argtypes = [i]
+        lib.hbsm_cuda_error_string.argtypes = [_I]
         _LIB = lib
     return _LIB
+
+
+def launch_config(dtype, precision: str) -> dict:
+    """What a launch for this data type and tier gets (the keys of
+    `pallas_gemm_rows.CONFIG_KEYS`), read from the library and the card."""
+    from hierarchical_block_sparse_lib_tpu_torch.kernels.pallas_gemm_rows import CONFIG_KEYS
+
+    lib = _kernel_lib()
+    info = (ctypes.c_int * len(CONFIG_KEYS))()
+    err = lib.hbsm_stream_gemm_config(
+        int(dtype == torch.bfloat16), _PRECISIONS[_tier(precision, dtype)],
+        ctypes.cast(info, ctypes.c_void_p),
+    )
+    if err != 0:
+        raise RuntimeError(f"stream config: {lib.hbsm_cuda_error_string(err).decode()}")
+    return dict(zip(CONFIG_KEYS, info))
 
 
 def gather_gemm_accumulate_stream(

@@ -10,7 +10,8 @@ root's ``build/``, and times, with that root's `utils.profiling.cuda_time_ms`,
 the calls of `micro` "wide" at 832 and "quad" at 896 at both tiers, `e3`
 at R3 = 4096 and `e2` "reshape" through the wrappers every checkout has.
 Prints one JSON line per turn and both designs' medians beside the card's
-name and power limit.  Exits non-zero without a card.
+name and power limit.  Exits non-zero without a card.  `run_turns` is the
+turn machinery; scripts/time_tile_designs.py uses it too.
 """
 
 from __future__ import annotations
@@ -54,7 +55,13 @@ def measure(root: str) -> dict:
     return {name: cuda_time_ms(fn)[0] for name, fn in calls.items()}
 
 
-def main(other_root: str) -> int:
+def run_turns(script: str, other_root: str) -> int:
+    """Run ``python SCRIPT --measure ROOT`` for the other checkout, this
+    one, this one, the other (each turn a process of its own, which
+    prints one JSON object of name -> number as its last line); print
+    each turn's JSON line and then both designs' numbers side by side,
+    under the card's name and power limit.  Returns 2 without a card, a
+    failed turn's exit code, or 0."""
     import torch
 
     if not torch.cuda.is_available():
@@ -66,21 +73,25 @@ def main(other_root: str) -> int:
     roots = {"other": os.path.abspath(other_root), "this": THIS_ROOT}
     turns = []
     for label in ("other", "this", "this", "other"):
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--measure",
+        proc = subprocess.run([sys.executable, os.path.abspath(script), "--measure",
                                roots[label]], capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:
             print(proc.stdout + proc.stderr, file=sys.stderr)
             return proc.returncode
         rec = json.loads(proc.stdout.strip().splitlines()[-1])
-        print(json.dumps({"turn": label, "root": roots[label], "call_ms": rec}))
+        print(json.dumps({"turn": label, "root": roots[label], "measured": rec}))
         turns.append((label, rec))
-    print(f"{card_line()}: call ms (CUDA events, median of 7 after 2 warm-ups), "
-          f"turns other, this, this, other")
+    print(f"{card_line()}: turns other, this, this, other")
     for name in turns[0][1]:
         for label in ("other", "this"):
-            calls = " / ".join(f"{r[name]:.4f}" for lab, r in turns if lab == label)
-            print(f"  {name:24s} {label:5s} {calls} ms")
+            vals = " / ".join(f"{r[name]:.4f}" for lab, r in turns if lab == label)
+            print(f"  {name:34s} {label:5s} {vals}")
     return 0
+
+
+def main(other_root: str) -> int:
+    """The micro kernels' call ms (median of 7 after 2 warm-ups) in turns."""
+    return run_turns(__file__, other_root)
 
 
 if __name__ == "__main__":

@@ -31,11 +31,16 @@ import torch
 
 
 # NVIDIA H100 SXM data sheet at 700 W, dense: operations per second by
-# type (FP32 outside the tensor cores; bf16 on them) and HBM3 bytes per
-# second.  The least time a function can take on the card is the larger
-# of its operations over the peak for their type and its bytes (each
-# input read once, each output written once) over the memory rate.
-PEAK_OPS = {"fp32": 67e12, "bf16": 989e12}
+# type (FP32 outside the tensor cores; TF32 and bf16 on them) and HBM3
+# bytes per second.  The least time a function can take on the card is
+# the larger of its operations over the peak for their type and its bytes
+# (each input read once, each output written once) over the memory rate.
+# A split tier's product takes three tensor-core passes, so its rate per
+# product operation is a third of its type's: "tf32x3" for 3xTF32 (the
+# 128-tile kernels' "highest" on f32 data), "bf16x3" for the bf16 split
+# ("high").
+PEAK_OPS = {"fp32": 67e12, "tf32": 495e12, "bf16": 989e12,
+            "tf32x3": 495e12 / 3, "bf16x3": 989e12 / 3}
 HBM_BYTES = 3.35e12
 
 

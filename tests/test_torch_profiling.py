@@ -90,6 +90,21 @@ def test_timing_measures_nothing_off_the_card():
     assert (ms, by) == (pytest.approx(1.0), "bytes")
 
 
+def test_bounds_name_the_tensor_core_route():
+    """The 128-tile kernels' routes: TF32 at 495 TFLOP/s dense, a split
+    tier's three passes at a third of its type's rate ("tf32x3" for
+    "highest" on f32 data, "bf16x3" for "high").  B2-tile128 (5 156
+    products of 128-wide blocks): 0.323 ms on FP32 FFMA, 0.131 ms on
+    3xTF32."""
+    assert tp.PEAK_OPS["tf32"] == 495e12
+    assert tp.PEAK_OPS["tf32x3"] == pytest.approx(165e12)
+    assert tp.PEAK_OPS["bf16x3"] == pytest.approx(989e12 / 3)
+    flops = 2 * 128**3 * 5156
+    assert tp.bound(flops, 0.0)[0] == pytest.approx(0.3228, abs=1e-4)
+    ms, by = tp.bound(flops, 342.7e6, "tf32x3")  # operands and output: 0.102 ms of bytes
+    assert (ms, by) == (pytest.approx(0.1311, abs=1e-4), "operations")
+
+
 def test_profile_fine_pieces_runs_on_the_cpu():
     res = profile_fine_pieces.main("cpu", n=512)
     assert res["pairs"] > 0
