@@ -8,11 +8,12 @@ final line):
 
 1. versions, and the card's name and power limit (nvidia-smi);
 2. build the Hopper kernels from the sources in this checkout, one nvcc
-   per source, all started together; print the two 128-tile kernels'
+   per source, all started together; print the three 128-tile kernels'
    launches per data type and tier (shared bytes, blocks per SM,
    registers, spills) and the tensor-core instructions in their SASS
    (HMMA from mma.sync, HGMMA from wgmma, counted by cuobjdump), which
-   every instantiation must have;
+   every instantiation of the row-panel, pair-stream and row-group
+   kernels must have;
 3. each kernel vs its plain PyTorch version at small shapes: the fine
    kernel at b in {16, 32, 64} x the three precision tiers (rectangular
    alpha != 1 operands with empty rows, the zero tail), then its edges at
@@ -68,8 +69,9 @@ final line):
     JAX package's plan, matmul and spgemm on the row-group kernel,
     unplanned and planned, against the host plans' counters (leaf
     multiplies included) and an f64 dense oracle; the group kernel vs
-    plain; times of the same planned product through "groups", "rows"
-    and "pallas", and a torch.profiler breakdown of each;
+    plain, its device time per launch and both bounds; the same planned product through "rows" and "pallas" bitwise
+    equal to "groups"; times of it on each of the three, and a
+    torch.profiler breakdown of each;
 13. B2-tile128 (bench.py:477: random 16384^2 at leaf 128, 5%, seed 2)
     without row caps, on the pair-stream kernel: counters, a repeated
     call bitwise equal, the product against the port's float64 path; the
@@ -82,11 +84,14 @@ final line):
     mode, recipe, tier and do_adds; micro at reps 0, 1, 5 on shapes that
     cut its block tiles, "quad" bitwise equal to "wide" at 896; e3 with
     out-of-range, one-slot and empty indices, and one e3 call shown to be
+    one launch of one kernel; e12 with random, one-slot and out-of-range
+    slots and past one scan chunk, and one e12 call per tier shown to be
     one launch of one kernel), then the port's three measurement
     scripts at their own shapes (scripts/micro_fine_kernel.py,
     micro_fine_kernel2.py: each kernel against its plain version, its
     times, bound and library time in turns, and the torch-op probes; the micro kernels' launches counted
-    around them; the micro kernels' profiler device times), scripts/
+    around them; the micro kernels' profiler device times, e12's against
+    both bounds), scripts/
     profile_fine_pieces.py: the planned B2 multiply in parts, and scripts/
     time_fine_kernel.py: the fine kernel alone at B2's structure for each
     leaf and tier, and its launch sizes swept.
@@ -247,11 +252,13 @@ def tile_kernel_report():
     reached."""
     import torch
 
+    from hierarchical_block_sparse_lib_tpu_torch.kernels import pallas_gemm_groups as pg
     from hierarchical_block_sparse_lib_tpu_torch.kernels import pallas_gemm_rows as pr
     from hierarchical_block_sparse_lib_tpu_torch.kernels import pallas_gemm_stream as ps
 
     for label, mod, tiers in (("rows_spgemm", pr, ("highest", "high", "default")),
-                              ("stream", ps, ("highest", "default"))):
+                              ("stream", ps, ("highest", "default")),
+                              ("groups_spgemm", pg, ("highest", "high", "default"))):
         for dtype, prec in [(torch.float32, t) for t in tiers] + [(torch.bfloat16, "highest")]:
             print(f"[build] {label} {str(dtype)[6:]} {prec}: {mod.launch_config(dtype, prec)}")
     # Template arguments in the mangled names: data type and tier.
@@ -265,7 +272,7 @@ def tile_kernel_report():
             tier = next(v for k, v in tiers.items() if kernel + k in fn)
             print(f"[build] SASS {kernel:18s} {tier:11s}: {hmma:4d} HMMA {hgmma:4d} HGMMA "
                   f"{ffma:5d} FFMA")
-            if name != "gemm_groups" and hmma + hgmma == 0:
+            if hmma + hgmma == 0:
                 raise AssertionError(f"{kernel} {tier}: no tensor-core instruction in its SASS")
 
 
@@ -1122,7 +1129,7 @@ def per_call_us(dev, reps, match=""):
 
 
 def tile_bounds(flops, nbytes, device_us, kind="tf32x3"):
-    """The 128-tile kernels' two bounds, FP32 FFMA and the tier's
+    """A tensor-core kernel's two bounds, FP32 FFMA and the tier's
     tensor-core route (`kind`, utils/profiling.PEAK_OPS), each with the
     kernel's share of it (bound / device time per launch)."""
     fp32, route = bound(flops, nbytes, "fp32"), bound(flops, nbytes, kind)
@@ -1289,16 +1296,26 @@ def b1_path(card):
     print(f"[B1] groups_spgemm vs plain: max abs err {abs_err:.3e}, rel {rel:.3e}")
     k_ms, p_ms, four = alternate(lambda: pg.groups_spgemm(*gargs),
                                  lambda: pg.groups_spgemm_reference(*gargs))
+    flops, nbytes = 2 * 128**3 * pc, A.data.numel() * 4 + oc * 128 * 128 * 4
+    gdev = device_profile("groups_spgemm at B1", lambda: pg.groups_spgemm(*gargs), 10, card,
+                          top=3)
+    g_bounds = tile_bounds(flops, nbytes, per_call_us(gdev, 10, "groups_kernel"))
     backends = ("groups", "rows", "pallas")
     for be in backends[1:]:
+        # One engine, one tile split and one product order: the same bits.
         C, _ = hbsm.spgemm(A, A, pc, oc, plan=plan, backend=be, **caps)
-        print(f"[B1] planned spgemm on {be!r} vs 'groups': rel diff "
-              f"{rel_err(C.data, Cu.data):.3e} (bitwise: {torch.equal(C.data, Cu.data)})")
+        if not (torch.equal(C.ids, Cu.ids) and torch.equal(C.data, Cu.data)):
+            raise AssertionError(f"B1 planned spgemm on {be!r} is not bitwise equal to "
+                                 f"'groups': rel diff {rel_err(C.data, Cu.data):.3e}")
+        print(f"[B1] planned spgemm on {be!r} == 'groups', bitwise")
     times = in_turns({be: (lambda be=be: hbsm.spgemm(A, A, pc, oc, plan=plan, backend=be, **caps))
                       for be in backends})
     print(f"[time] {card}: B1, CUDA events, median of 7 after 2 warm-up calls")
     print(f"[time]   groups_spgemm kernel {four[0]:.4f} / {four[1]:.4f} ms   "
-          f"plain {four[2]:.4f} / {four[3]:.4f} ms")
+          f"plain {four[2]:.4f} / {four[3]:.4f} ms; kernel "
+          f"{1e3 * (g_bounds['device_ms'] or 0):.1f} us per launch: bounds FP32 "
+          f"{g_bounds['bound_fp32_ms']:.4f} ms ({pct(g_bounds['share_fp32'])}), 3xTF32 "
+          f"{g_bounds['bound_route_ms']:.4f} ms ({pct(g_bounds['share_route'])})")
     for be, (t1, t2) in times.items():
         print(f"[time]   planned spgemm on {be:7s} {t1:.4f} / {t2:.4f} ms "
               f"(in order groups, rows, pallas, then reversed)")
@@ -1307,7 +1324,7 @@ def b1_path(card):
                        lambda be=be: hbsm.spgemm(A, A, pc, oc, plan=plan, backend=be, **caps),
                        20, card, top=4)
     entry = dict(max_abs_err=abs_err, ms=k_ms, plain_ms=p_ms, library_ms=None,
-                 bound=bound(2 * 128**3 * pc, A.data.numel() * 4 + oc * 128 * 128 * 4))
+                 bound=bound(flops, nbytes, "tf32x3"), **g_bounds)
     return entry, got["groups_spgemm"]
 
 
@@ -1487,13 +1504,21 @@ def small_micro(card):
         print(f"  e3 {label}: equal to plain bitwise")
     e3_one_launch(mf, v, torch.from_numpy(rng.integers(0, 500, 4096).astype(np.int32)).to(DEVICE),
                   card)
-    a_wide, panel = normal((5, 32, 128)), normal((8 * 26, 128))
-    idx12 = torch.from_numpy(rng.integers(0, 512, 5 * 26).astype(np.int32)).to(DEVICE)
-    for prec in ("highest", "default"):
-        for do_adds in (True, False):
-            check(f"e12 RA=5 {prec} adds={do_adds}",
-                  mf.e12(a_wide, panel, idx12, prec, do_adds),
-                  mf.e12_reference(a_wide, panel, idx12, prec, do_adds), MICRO_TOL[prec])
+    for ra, label, slots in (
+        (5, "random slots", rng.integers(0, 512, 5 * 26)),
+        (5, "all in slot 7", np.full(5 * 26, 7)),
+        (5, "none in range", rng.choice([-3, 512, 900], 5 * 26)),
+        # Past one scan chunk (4 096 entries), slots in and out of range.
+        (320, "random slots past one scan chunk", rng.integers(-20, 530, 320 * 26)),
+    ):
+        a_wide, panel = normal((ra, 32, 128)), normal((8 * 26, 128))
+        idx12 = torch.from_numpy(slots.astype(np.int32)).to(DEVICE)
+        for prec in ("highest", "default"):
+            for do_adds in (True, False):
+                check(f"e12 RA={ra} {label} {prec} adds={do_adds}",
+                      mf.e12(a_wide, panel, idx12, prec, do_adds),
+                      mf.e12_reference(a_wide, panel, idx12, prec, do_adds), MICRO_TOL[prec])
+    e12_one_launch(mf, a_wide, panel, idx12, card)
 
 
 def e3_one_launch(mf, v, idx, card):
@@ -1511,6 +1536,55 @@ def e3_one_launch(mf, v, idx, card):
         raise AssertionError(f"one e3 call: {launches} counted launches, device functions "
                              f"{dev}; expected 1 and the e3 kernel alone")
     print(f"  e3 one call at R3=4096: 1 counted launch; the profiler lists {names}")
+
+
+def e12_one_launch(mf, a_wide, panel, idx, card):
+    """One e12 call per tier: its launch counter must read 1, and the
+    profiler over ten calls must list one device function, the e12 kernel
+    (no sort or searchsorted, nor any other), launched once a call."""
+    for prec in ("highest", "default"):
+        mf.e12.launches = 0
+        mf.e12(a_wide, panel, idx, prec)
+        launches, mf.e12.launches = mf.e12.launches, 0
+        dev = device_profile(f"e12 {prec}", lambda p=prec: mf.e12(a_wide, panel, idx, p), 10,
+                             card)
+        mf.e12.launches = 0
+        names = list(dev)
+        if (launches != 1 or len(names) != 1 or "e12_kernel" not in names[0]
+                or dev[names[0]][1] > 10):
+            raise AssertionError(f"one e12 {prec} call: {launches} counted launches, device "
+                                 f"functions {dev}; expected 1 and the e12 kernel alone")
+        print(f"  e12 {prec} one call: 1 counted launch; the profiler lists {names}")
+
+
+def e12_yardstick(a_wide, panel, idx, nbrow, card):
+    """e12's work as two library calls, TF32 off: one torch.bmm over the
+    gathered (X_t, L_e) pairs and one index_add_ of the products into a
+    zeroed accumulator (the gather is not timed).  A yardstick, not the
+    same function: index_add_ keeps no order among a slot's adds."""
+    import torch
+
+    from hierarchical_block_sparse_lib_tpu_torch.kernels import micro_fine as mf
+
+    q = torch.arange(a_wide.shape[0] * nbrow, device=a_wide.device)
+    x = panel.reshape(nbrow, 32, 32)[q % nbrow]
+    lg = a_wide[:, :, 0:32][q // nbrow].contiguous()
+    acc = torch.empty((mf.ACC_ROWS // 8, 1024), dtype=torch.float32, device=a_wide.device)
+    slots = idx.long()
+
+    def run():
+        acc.zero_().index_add_(0, slots, torch.bmm(x, lg).reshape(-1, 1024))
+
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        ms = cuda_time_ms(run)[0]
+        us = per_call_us(device_profile("e12 yardstick (bmm + index_add_)", run, 10, card,
+                                        top=3), 10)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+    print(f"[micro] e12 yardstick, torch.bmm over the {q.numel()} gathered pairs + index_add_ "
+          f"(TF32 off): {ms:.4f} ms a call, {us:.1f} us of device time")
 
 
 def micro_path(card, fine_ns_per_pair):
@@ -1555,6 +1629,7 @@ def micro_path(card, fine_ns_per_pair):
     from hierarchical_block_sparse_lib_tpu_torch.kernels import micro_fine as mf
 
     rng = np.random.default_rng(0)
+    dev_us = {}
 
     def normal(*shape):
         return torch.from_numpy((rng.standard_normal(shape) * 0.1).astype(np.float32)).to(DEVICE)
@@ -1574,7 +1649,8 @@ def micro_path(card, fine_ns_per_pair):
         ("e12 highest no adds", lambda: mf.e12(a_wide, panel, idx, do_adds=False),
          "e12_kernel", n_leaf),
     ):
-        us = per_call_us(device_profile(label, run, 10, card, top=3), 10, kernel)
+        us = dev_us[label] = per_call_us(device_profile(label, run, 10, card, top=3), 10,
+                                         kernel)
         per = f", {us * 1e3 / n:.2f} ns per leaf product" if n and us else ""
         if kernel == "dot_" and us:
             la = at.shape[1] if "wide" in label else atq.shape[1]
@@ -1583,6 +1659,15 @@ def micro_path(card, fine_ns_per_pair):
                             "fp32" if hi else "bf16")
             per = f", {100 * b_ms * 1e3 / us:.1f}% of its {b_ms:.4f} ms bound"
         print(f"[micro] {label}: {kernel} {us:.1f} us of device time per call{per}")
+    # e12 at "highest" runs 3xTF32 on mma.sync: its route's bound and FP32's
+    # (micro_fine_kernel2's flops and bytes).
+    e12_bounds = tile_bounds(2 * 32**3 * n_leaf,
+                             4 * (a_wide.shape[0] * 32 * 32 + panel.numel() + idx.numel())
+                             + 4 * mf.ACC_ROWS * 128, dev_us["e12 highest adds"])
+    print(f"[micro] e12 highest adds: bounds 3xTF32 {e12_bounds['bound_route_ms']:.5f} ms "
+          f"({pct(e12_bounds['share_route'])}), FP32 {e12_bounds['bound_fp32_ms']:.5f} ms "
+          f"({pct(e12_bounds['share_fp32'])}) of its device time per launch")
+    e12_yardstick(a_wide, panel, idx, sizes.NBROW, card)
     for prec in ("highest", "default"):  # the library yardstick's device time
         dev = device_profile(f"stacked torch.matmul {prec}", m1.stacked_matmul(
             at, bp, mf.REPS, prec), 10, card, top=3)
@@ -1613,6 +1698,7 @@ def micro_path(card, fine_ns_per_pair):
                        plain_ms=recs[n]["plain_ms"], library_ms=recs[n]["library_ms"],
                        bound=(recs[n]["bound_ms"], recs[n]["bound_by"]))
                for k, n in picks.items()}
+    entries["e12"].update(e12_bounds)
     return entries, got
 
 
@@ -1787,7 +1873,7 @@ def main() -> int:
             "max_abs_err": e["max_abs_err"], "ms": e["ms"],
             "plain_ms": e["plain_ms"], "bound_ms": e["bound"][0],
             "bound_by": e["bound"][1], "library_ms": e["library_ms"],
-            # The 128-tile kernels: both bounds and the kernel's share of each.
+            # The tensor-core kernels: both bounds and the kernel's share of each.
             **{k: e[k] for k in ("bound_fp32_ms", "bound_route", "bound_route_ms",
                                  "device_ms", "share_fp32", "share_route") if k in e},
         })

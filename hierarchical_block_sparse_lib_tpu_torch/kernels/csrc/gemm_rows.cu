@@ -100,7 +100,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       }
       // Products in ascending A-entry order.
       const int n_hits = compact_hits(e, q, hit_e, hit_q, warp_hits);
-      accumulate_ring<T, MODE>(acc, ring, n_hits, kTile, [&](int h) {
+      accumulate_ring<T, MODE>(acc, ring, n_hits, size_t{kTile}, [&](int h) {
         const size_t block = static_cast<size_t>(kTile) * kTile;
         return Operands<T>{a + hit_e[h] * block, b + hit_q[h] * block + col0};
       });

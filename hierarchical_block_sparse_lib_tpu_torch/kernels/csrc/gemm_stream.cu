@@ -68,8 +68,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   Frags acc;
   load_frags(acc, cin != nullptr ? cin + tile_off : nullptr, ld);
   const int p0 = slot_start[blockIdx.x];
-  accumulate_ring<T, MODE>(acc, ring, slot_start[blockIdx.x + 1] - p0, ld,
-                           [&](int h) {
+  accumulate_ring<T, MODE>(acc, ring, slot_start[blockIdx.x + 1] - p0,
+                           static_cast<size_t>(ld), [&](int h) {
     // Indices are clamped into the operands: a bad pair list gives wrong
     // values, never a read out of bounds.
     const int ia = min(max(a_idx[p0 + h], 0), cap_a - 1);

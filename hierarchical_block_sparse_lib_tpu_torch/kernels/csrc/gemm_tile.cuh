@@ -1,20 +1,18 @@
 // The output tiles shared by the port's GEMM kernels at 128-wide and wider
-// leaves: two engines.
-//
-// The ring engine (rows_spgemm in gemm_rows.cu, the pair stream in
-// gemm_stream.cu).  One 256-thread block owns a 128x64 f32 tile of an
-// output block, kept in registers: warp w holds rows 16 w + [0, 16), all
-// 64 columns (32 registers a thread, the accumulator layout of mma.sync
-// m16n8 and of wgmma m64n64).  The block's leaf products form one sequence
-// of 128-byte-deep k-slices (32 f32 or 64 bf16 values of k), staged by
-// 16-byte cp.async into a ring of kStages slices in dynamic shared memory:
-// one barrier a slice, the copies of the next two slices, of this product
-// and the next, in flight under the math.  A is staged [row][k] and B
-// [k][col] as stored, each row padded by 16 or 32 bytes so that every
+// leaves: the ring engine (rows_spgemm in gemm_rows.cu, the pair stream in
+// gemm_stream.cu, the row groups in gemm_groups.cu).  One 256-thread block
+// owns a 128x64 f32 tile of an output block, kept in registers: warp w holds
+// rows 16 w + [0, 16), all 64 columns (32 registers a thread, the accumulator
+// layout of mma.sync m16n8 and of wgmma m64n64).  The block's leaf products
+// form one sequence of 128-byte-deep k-slices (32 f32 or 64 bf16 values of
+// k), staged by 16-byte cp.async into a ring of kStages slices in dynamic
+// shared memory: one barrier a slice, the copies of the next two slices, of
+// this product and the next, in flight under the math.  A is staged [row][k]
+// and B [k][col] as stored, each row padded by 16 or 32 bytes so that every
 // fragment load is free of bank conflicts.  Each element's sum is serial
-// (products in the caller's order, k ascending), in f32, with no atomics,
-// so a fixed structure gives bitwise-equal results.  The tile is stored
-// with streaming stores, which keep the operands in L2.
+// (products in the caller's order, k ascending), in f32, with no atomics, so
+// a fixed structure gives bitwise-equal results.  The tile is stored with
+// streaming stores, which keep the operands in L2.
 //
 // Tensor-core passes per tier (the reference's, kernels/mxu.py):
 //   MODE 0 "highest", f32 data: 3xTF32 on wgmma m64n64k8, big =
@@ -44,13 +42,6 @@
 // call (PERF.md, PR 7).  Two blocks share an SM (99 KB of shared memory
 // and at most 128 registers each), so one block's ring fill, split pass
 // and store run under the other's math.
-//
-// The FFMA engine (gemm_groups.cu): one 256-thread block owns one 128x128
-// tile, an 8x8 tile per thread; each 32-deep k-slice of A (transposed,
-// rows padded) and of B is staged in shared memory between two barriers,
-// then every thread does 64 FFMA per 16 values it reads from shared
-// memory.  Precision: MODE 0 operands as stored, FP32 FFMA; MODE 1 the
-// bf16x3 split; MODE 2 operands rounded to bf16.
 
 #pragma once
 
@@ -63,140 +54,7 @@ namespace hbsm {
 constexpr int kTile = 128;  // output tile edge: leaves are multiples of it
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kPad = 4;  // row padding of the transposed A slice
 constexpr int kSentinel = 0x7fffffff;
-
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-template <int MODE>
-struct Tile {
-  // k-slice depth: the split tier keeps hi and lo copies of both slices.
-  static constexpr int KS = MODE == 1 ? 16 : 32;
-  float a[KS][kTile + kPad];  // A slice, transposed: a[kk][row]
-  float b[KS][kTile];         // B slice: b[kk][col]
-  float a_lo[MODE == 1 ? KS : 1][kTile + kPad];
-  float b_lo[MODE == 1 ? KS : 1][kTile];
-};
-
-// Stage value x of a slice at [kk][idx] in the tier's form.
-template <int MODE, int W>
-__device__ __forceinline__ void put(float (*hi)[W], float (*lo)[W], int kk,
-                                    int idx, float x) {
-  if (MODE == 1) {
-    const float h = bf16_round(x);
-    hi[kk][idx] = h;
-    lo[kk][idx] = bf16_round(x - h);
-  } else {
-    hi[kk][idx] = MODE == 2 ? bf16_round(x) : x;
-  }
-}
-
-__device__ __forceinline__ void load8(float* v, const float* row, int t) {
-  const float4 p = *reinterpret_cast<const float4*>(row + t * 4);
-  const float4 q = *reinterpret_cast<const float4*>(row + 64 + t * 4);
-  v[0] = p.x; v[1] = p.y; v[2] = p.z; v[3] = p.w;
-  v[4] = q.x; v[5] = q.y; v[6] = q.z; v[7] = q.w;
-}
-
-// Row (or column) of the tile that entry r of a thread's 8x8 tile covers:
-// thread (ty, tx) holds rows ty*4 + {0..3} and 64 + ty*4 + {0..3}, and
-// the same pattern of columns with tx.
-__device__ __forceinline__ int tile_row(int t, int r) {
-  return t * 4 + (r >> 2) * 64 + (r & 3);
-}
-
-// acc[r][c] += sum_kk A(row_r, kk) B(kk, col_c) over the staged slice.
-template <int MODE>
-__device__ __forceinline__ void multiply_slice(float (&acc)[8][8],
-                                               const Tile<MODE>& s, int ty,
-                                               int tx) {
-#pragma unroll 4
-  for (int kk = 0; kk < Tile<MODE>::KS; ++kk) {
-    float a[8], b[8];
-    load8(a, s.a[kk], ty);
-    load8(b, s.b[kk], tx);
-    if (MODE == 1) {
-      float al[8], bl[8];
-      load8(al, s.a_lo[kk], ty);
-      load8(bl, s.b_lo[kk], tx);
-#pragma unroll
-      for (int r = 0; r < 8; ++r) {
-#pragma unroll
-        for (int c = 0; c < 8; ++c) {
-          acc[r][c] = fmaf(a[r], b[c],
-                           fmaf(al[r], b[c], fmaf(a[r], bl[c], acc[r][c])));
-        }
-      }
-    } else {
-#pragma unroll
-      for (int r = 0; r < 8; ++r) {
-#pragma unroll
-        for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
-      }
-    }
-  }
-}
-
-// acc += A_t @ B_t for one leaf product.  `a` points at the first of the
-// tile's 128 rows of an A block, `b` at the first of its 128 columns of a B
-// block; both blocks are row-major with row stride `ld`, which is also the
-// product's depth.  Every thread of the block must call this.
-template <typename T, int MODE>
-__device__ __forceinline__ void accumulate_product(float (&acc)[8][8],
-                                                   Tile<MODE>& s,
-                                                   const T* __restrict__ a,
-                                                   const T* __restrict__ b,
-                                                   int ld, int ty, int tx) {
-  constexpr int KS = Tile<MODE>::KS;
-  for (int k0 = 0; k0 < ld; k0 += KS) {
-    for (int v = threadIdx.x; v < KS * kTile; v += kThreads) {
-      const int row = v / KS, kk = v % KS;  // A(row, k0 + kk)
-      put<MODE>(s.a, s.a_lo, kk, row,
-                widen(a[static_cast<size_t>(row) * ld + k0 + kk]));
-      const int kb = v / kTile, col = v % kTile;  // B(k0 + kb, col)
-      put<MODE>(s.b, s.b_lo, kb, col,
-                widen(b[static_cast<size_t>(k0 + kb) * ld + col]));
-    }
-    __syncthreads();
-    multiply_slice<MODE>(acc, s, ty, tx);
-    __syncthreads();
-  }
-}
-
-// The tile starts as zeros, or as the f32 tile at `src` (row stride ld).
-__device__ __forceinline__ void load_tile(float (&acc)[8][8],
-                                          const float* src, int ld, int ty,
-                                          int tx) {
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      acc[r][c] = src != nullptr
-                      ? src[static_cast<size_t>(tile_row(ty, r)) * ld +
-                            tile_row(tx, c)]
-                      : 0.f;
-    }
-  }
-}
-
-__device__ __forceinline__ void store_tile(float* dst,
-                                           const float (&acc)[8][8], int ld,
-                                           int ty, int tx) {
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    float* row = dst + static_cast<size_t>(tile_row(ty, r)) * ld;
-    *reinterpret_cast<float4*>(row + tx * 4) =
-        make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
-    *reinterpret_cast<float4*>(row + 64 + tx * 4) =
-        make_float4(acc[r][4], acc[r][5], acc[r][6], acc[r][7]);
-  }
-}
 
 // First index in [lo, hi) of the sorted `col` that equals j, or -1.
 __device__ __forceinline__ int find_sorted(const int* __restrict__ col,
@@ -237,8 +95,6 @@ __device__ __forceinline__ int compact_hits(int e, int q, int* hit_e,
   __syncthreads();
   return n_hits;
 }
-
-// ---- The ring engine --------------------------------------------------------
 
 constexpr int kRingCols = 64;  // a ring tile is kTile rows x kRingCols columns
 constexpr int kStages = 3;     // slices in the ring
@@ -527,9 +383,10 @@ __device__ __forceinline__ void mma_slice_bf16(Frags& acc,
 
 // Stage slice k0 of a tile's product into one ring stage: A(0:128, k0 +
 // [0, KS)) and B(k0 + [0, KS), 0:64), both row-major with row stride ld.
-template <typename T>
+// Row offsets are computed in ld's type L (see accumulate_ring).
+template <typename T, typename L>
 __device__ __forceinline__ void stage_slice(T* st, const T* __restrict__ a,
-                                            const T* __restrict__ b, int ld,
+                                            const T* __restrict__ b, L ld,
                                             int k0) {
   using R = Ring<T>;
   constexpr int EPC = 16 / sizeof(T);                // elements per copy
@@ -538,16 +395,14 @@ __device__ __forceinline__ void stage_slice(T* st, const T* __restrict__ a,
   for (int i = 0; i < kTile * 8 / kThreads; ++i) {
     const int c = threadIdx.x + i * kThreads;
     const int row = c >> 3, ch = c & 7;
-    cp_async16(st + row * R::A_LD + ch * EPC,
-               a + static_cast<size_t>(row) * ld + k0 + ch * EPC);
+    cp_async16(st + row * R::A_LD + ch * EPC, a + (row * ld + k0 + ch * EPC));
   }
   T* sb = st + R::A_ELEMS;
 #pragma unroll
   for (int i = 0; i < R::KS * B_CPR / kThreads; ++i) {
     const int c = threadIdx.x + i * kThreads;
     const int row = c / B_CPR, ch = c % B_CPR;
-    cp_async16(sb + row * R::B_LD + ch * EPC,
-               b + static_cast<size_t>(k0 + row) * ld + ch * EPC);
+    cp_async16(sb + row * R::B_LD + ch * EPC, b + ((k0 + row) * ld + ch * EPC));
   }
 }
 
@@ -555,22 +410,26 @@ __device__ __forceinline__ void stage_slice(T* st, const T* __restrict__ a,
 // operands(h) gives product h's pointers: the first of the tile's 128 rows
 // of an A block and the first of its 64 columns of a B block, both
 // row-major with row stride `ld`, which is also the depth.  The products'
-// slices run through the ring as one sequence.  Every thread of the block
-// must call this; it ends with a barrier, so the ring and whatever
-// operands() read may be reused at once.
-template <typename T, int MODE, typename F>
+// slices run through the ring as one sequence.  L is the type the
+// operands' row offsets are computed in: size_t, or int (fewer registers,
+// for a caller that holds more state across the ring; offsets below 2^31).
+// Every thread of the block must call this; it ends with a barrier, so the
+// ring and whatever operands() read may be reused at once.
+template <typename T, int MODE, typename L, typename F>
 __device__ __forceinline__ void accumulate_ring(Frags& acc, T* ring,
-                                                int n_products, int ld,
+                                                int n_products, L ld,
                                                 F operands) {
   using R = Ring<T>;
-  const int per = ld / R::KS;  // slices per product
-  const int n = n_products * per;
+  const int depth = static_cast<int>(ld);
+  const int n = n_products * (depth / R::KS);  // slices
+  int next_h = 0, next_k0 = 0;  // the slice issue() stages next
   auto issue = [&](int s) {
     if (s < n) {
-      const int h = s / per, k0 = (s - h * per) * R::KS;
-      const Operands<T> ab = operands(h);
+      const Operands<T> ab = operands(next_h);
       stage_slice<T>(ring + (s % kStages) * R::STAGE_ELEMS, ab.a, ab.b, ld,
-                     k0);
+                     next_k0);
+      next_k0 += R::KS;
+      if (next_k0 == depth) next_k0 = 0, ++next_h;
     }
     cp_async_commit();  // an empty group past the end keeps the count
   };

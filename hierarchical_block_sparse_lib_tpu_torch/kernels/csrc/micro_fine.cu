@@ -53,15 +53,30 @@
 //   e12: for each A block e < RA and panel block t < nbrow, slot idx[e *
 //     nbrow + t] += X_t L_e, with X_t the panel's block t read as a
 //     row-major 32x32 and L_e = a_wide[e][:, 0:32]: 6 656 leaf products of
-//     32x32x32 at RA = 256, nbrow = 26 (436 MFLOP, 6.5 us of FP32).  The
-//     wrapper sorts the (e, t) entries into runs per slot, stably; one
-//     thread block owns one slot, stages each entry's two blocks in shared
-//     memory and adds its product in registers, in ascending (e, t) order,
-//     as gemm_fine.cu does for an output slot.
+//     32x32x32 at RA = 256, nbrow = 26 (436 MFLOP, 6.5 us of FP32).  What
+//     bounds it is moving operands, not operations: each product reads 8
+//     KB from L2 (54 MB in all) and each slot-owning block reads all of
+//     idx (13 MB), while a slot's 13 products (26 at most) are serial.
+//     One launch, no sort: a block of four warps owns one slot and finds
+//     its entries itself, each warp scanning a quarter of a 4 096-entry
+//     chunk with coalesced 16-byte loads, all in flight at once, and
+//     ranking its hits with a ballot per bit; a barrier adds the warps'
+//     counts.  Without the adds slot t's entries are t, t + nbrow, ... and
+//     nothing is scanned.  The products stream through a four-stage
+//     cp.async ring of (X_t, L_e), one barrier a product, the next three
+//     products' operands in flight under this one's math; warp w forms its
+//     16x16 quadrant of each product in its own partial on the tensor
+//     cores and adds it to the slot's sum, in ascending (e, t) order.
+//     Staged rows are padded (X_t to 36 floats, L_e to 40 at "highest" and
+//     36 at "default"), so each tier's fragment loads are free of bank
+//     conflicts, but for two-way ones on A at "default".
 //
-// Precision.  0 "highest": f32 operands, FP32 FFMA.  2 "default": one
-// bf16 pass on the tensor cores (mma.sync m16n8k16, operands rounded to
-// bf16 to nearest even, exact products, f32 accumulation).
+// Precision.  micro and e12: 0 "highest" f32-faithful (micro FP32 FFMA;
+// e12 3xTF32 on mma.sync m16n8k8, big = tf32(x), small = tf32(x - big),
+// small*big + big*small + big*big into a zeroed partial per product, then
+// one f32 add).  2 "default": one bf16 pass on the tensor cores
+// (mma.sync m16n8k16, operands rounded to bf16 to nearest even, exact
+// products, f32 accumulation).
 //
 // Determinism: every sum runs serially in a fixed order in registers and
 // every output element is written once, so repeated calls are bitwise
@@ -71,7 +86,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gemm_tile.cuh"  // cp.async and the tf32 split
+
 namespace {
+
+using hbsm::cp_async16;
+using hbsm::cp_async_commit;
+using hbsm::cp_async_wait;
+using hbsm::tf32_split;
 
 __device__ __forceinline__ float rep_scale(int i) {
   // s_i = 1 + f32(i) * 1e-9, rounded as the TPU kernel rounds it (no FMA).
@@ -466,58 +488,204 @@ __global__ void __launch_bounds__(256)
 
 // ---- e12 ---------------------------------------------------------------
 
-template <bool kMma>
-__global__ void __launch_bounds__(256)
-    e12_kernel(const int* __restrict__ order, const int* __restrict__ run_start,
-               const float* __restrict__ a_wide, const float* __restrict__ panel,
-               float* __restrict__ acc, int nbrow, int a_lanes) {
-  __shared__ __align__(16) float sx[32 * 32];  // X_t, row-major
-  __shared__ __align__(16) float sl[32 * 32];  // L_e = a_wide[e][:, 0:32]
-  const int slot = blockIdx.x, tid = threadIdx.x;
-  const int lo = run_start[slot], hi = run_start[slot + 1];
-  const int c = tid & 31, r0 = tid >> 5;  // FFMA: rows r0 + 8u, column c
-  const int warp = tid >> 5, lane = tid & 31;
-  const int tm = 16 * (warp >> 2), tn = 8 * (warp & 3);  // mma: one 16x8 tile
-  float sum[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int j = lo; j < hi; ++j) {
-    const int q = order[j], e = q / nbrow, t = q - e * nbrow;
-    reinterpret_cast<float4*>(sx)[tid] =
-        reinterpret_cast<const float4*>(panel + static_cast<size_t>(t) * 1024)[tid];
-    {
-      const int row = tid >> 3, c4 = tid & 7;
-      reinterpret_cast<float4*>(sl)[tid] = reinterpret_cast<const float4*>(
-          a_wide + (static_cast<size_t>(e) * 32 + row) * a_lanes)[c4];
-    }
-    __syncthreads();
-    float part[4] = {0.f, 0.f, 0.f, 0.f};
-    if constexpr (!kMma) {
-#pragma unroll 8
-      for (int k = 0; k < 32; ++k) {
-        const float l = sl[k * 32 + c];
+constexpr int kE12Warps = 4;   // a block owns one slot: warp w its 16x16 quadrant
+constexpr int kE12Threads = 32 * kE12Warps;
+constexpr int kE12Stages = 4;  // products staged in the slot's ring
+constexpr int kE12LdX = 36;    // a staged row of X_t: 32 floats + 16 bytes
+constexpr int kE12LdL = 40;    // a staged row of L_e: 32 floats + 32 bytes
+constexpr int kE12ProductFloats = 32 * (kE12LdX + kE12LdL);
+constexpr int kE12Chunk = 4096;  // entries scanned per chunk: the hit list's size
+constexpr int kE12WarpSpan = kE12Chunk / kE12Warps;  // a warp's share of a chunk
+
+// d += A(16x8) B(8x8) on the tensor cores, tf32 operands in the m16n8k8
+// fragment layout, f32 accumulators.
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The entries of [base, min(base + kE12Chunk, n)) whose slot is this
+// block's, as offsets from base in ascending order; returns their number.
+// Warp w scans entries kE12WarpSpan w + [0, kE12WarpSpan), lane l four of
+// each 128 (coalesced 16-byte loads, lane order entry order); a ballot per
+// bit gives each lane its rank in its step, the warps' totals their offsets.
+// Every thread must call it.
+__device__ __forceinline__ int e12_scan(const int* __restrict__ idx, int n, int base,
+                                        unsigned short* hits, int* warp_total) {
+  constexpr int kSteps = kE12WarpSpan / 128;
+  static_assert(kSteps * 4 <= 32, "a lane's flags fit one word");
+  const int slot = blockIdx.x, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  const int first = base + kE12WarpSpan * warp + 4 * lane;
+  unsigned flags = 0;  // bit 4 s + j: entry first + 128 s + j is this slot's
 #pragma unroll
-        for (int u = 0; u < 4; ++u) part[u] = fmaf(sx[(r0 + 8 * u) * 32 + k], l, part[u]);
+  for (int s = 0; s < kSteps; ++s) {  // all loads in flight at once
+    const int q = first + 128 * s;
+    int4 w = make_int4(-1, -1, -1, -1);
+    if (q + 4 <= n) {
+      w = *reinterpret_cast<const int4*>(idx + q);
+    } else if (q < n) {
+      w.x = idx[q];
+      if (q + 1 < n) w.y = idx[q + 1];
+      if (q + 2 < n) w.z = idx[q + 2];
+    }
+    flags |= (static_cast<unsigned>(w.x == slot) | static_cast<unsigned>(w.y == slot) << 1 |
+              static_cast<unsigned>(w.z == slot) << 2 | static_cast<unsigned>(w.w == slot) << 3)
+             << (4 * s);
+  }
+  int rank[kSteps], total = 0;  // this lane's first hit in step s; the warp's hits
+#pragma unroll
+  for (int s = 0; s < kSteps; ++s) {
+    rank[s] = total;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const unsigned b = __ballot_sync(0xffffffffu, flags >> (4 * s + j) & 1u);
+      rank[s] += __popc(b & below);
+      total += __popc(b);
+    }
+  }
+  if (lane == 0) warp_total[warp] = total;
+  __syncthreads();
+  int off = 0, n_hits = 0;
+#pragma unroll
+  for (int k = 0; k < kE12Warps; ++k) {
+    off += k < warp ? warp_total[k] : 0;
+    n_hits += warp_total[k];
+  }
+#pragma unroll
+  for (int s = 0; s < kSteps; ++s) {
+    unsigned m = flags >> (4 * s) & 0xfu;
+    int at = off + rank[s];
+    while (m != 0) {
+      const int j = __ffs(m) - 1;
+      m &= m - 1;
+      hits[at++] = static_cast<unsigned short>(first - base + 128 * s + j);
+    }
+  }
+  __syncthreads();
+  return n_hits;
+}
+
+// sum += the products of entries entry(0), ..., entry(count - 1), each
+// formed in its own partial and added in that order, through the block's
+// ring of kE12Stages products: one barrier a product, the next products'
+// operands in flight under this one's math.  Warp w forms rows 16 (w / 2)
+// and columns 16 (w % 2) + [0, 16) of each product, two 16x8 mma tiles.
+// Ends with the ring free.  Every thread must call it.
+template <bool kMma, typename F>
+__device__ __forceinline__ void e12_products(float (&sum)[2][4], float* ring, int count,
+                                             int nbrow, const float* __restrict__ a_wide,
+                                             const float* __restrict__ panel, int a_lanes,
+                                             F entry) {
+  // L_e's row pitch: each tier's fragment loads free of bank conflicts.
+  constexpr int kLdL = kMma ? kE12LdX : kE12LdL;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int tm = 16 * (warp >> 1), tn = 16 * (warp & 1);
+  auto issue = [&](int h) {
+    if (h < count) {
+      const int q = entry(h);
+      const int e = q / nbrow, t = q - e * nbrow;
+      float* sx = ring + (h % kE12Stages) * kE12ProductFloats;
+      float* sl = sx + 32 * kE12LdX;
+      const float* px = panel + static_cast<size_t>(t) * 1024;
+      const float* pl = a_wide + static_cast<size_t>(e) * 32 * a_lanes;
+#pragma unroll
+      for (int i = 0; i < 256 / kE12Threads; ++i) {  // 32 rows of 8 16-byte chunks
+        const int c = tid + kE12Threads * i, row = c >> 3, ch = (c & 7) * 4;
+        cp_async16(sx + row * kE12LdX + ch, px + row * 32 + ch);
+        cp_async16(sl + row * kLdL + ch, pl + row * a_lanes + ch);
+      }
+    }
+    cp_async_commit();  // an empty group past the end keeps the count
+  };
+#pragma unroll
+  for (int h = 0; h < kE12Stages - 1; ++h) issue(h);
+  for (int h = 0; h < count; ++h) {
+    cp_async_wait<kE12Stages - 2>();  // this thread's copies of product h landed
+    __syncthreads();  // everyone's have, and product h - 1 is consumed
+    issue(h + kE12Stages - 1);
+    const float* sx = ring + (h % kE12Stages) * kE12ProductFloats;  // X_t [m][k]
+    const float* sl = sx + 32 * kE12LdX;                             // L_e [k][n]
+    float part[2][4] = {};
+    if constexpr (!kMma) {
+      // 3xTF32 a k8 step: small*big + big*small + big*big.
+#pragma unroll
+      for (int k0 = 0; k0 < 32; k0 += 8) {
+        const float* xa = sx + (tm + g) * kE12LdX + k0 + t4;
+        uint32_t ab[4], as[4];
+        tf32_split(xa[0], ab[0], as[0]);
+        tf32_split(xa[8 * kE12LdX], ab[1], as[1]);
+        tf32_split(xa[4], ab[2], as[2]);
+        tf32_split(xa[8 * kE12LdX + 4], ab[3], as[3]);
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const float* lb = sl + (k0 + t4) * kLdL + tn + 8 * nt + g;
+          uint32_t bb[2], bs[2];
+          tf32_split(lb[0], bb[0], bs[0]);
+          tf32_split(lb[4 * kLdL], bb[1], bs[1]);
+          mma_tf32(part[nt], as, bb);
+          mma_tf32(part[nt], ab, bs);
+          mma_tf32(part[nt], ab, bb);
+        }
       }
     } else {
 #pragma unroll
       for (int k0 = 0; k0 < 32; k0 += 16) {
-        uint32_t a[4], b[2];
-        load_a(a, sx, 32, 1, tm, k0, 1.0f);
-        load_b(b, sl, 32, k0, tn);
-        mma_bf16(part, a, b);
+        uint32_t fa[4];
+        load_a(fa, sx, kE12LdX, 1, tm, k0, 1.0f);
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          uint32_t fb[2];
+          load_b(fb, sl, kLdL, k0, tn + 8 * nt);
+          mma_bf16(part[nt], fa, fb);
+        }
       }
     }
 #pragma unroll
-    for (int u = 0; u < 4; ++u) sum[u] += part[u];
-    __syncthreads();
+    for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) sum[nt][u] += part[nt][u];
+    }
   }
-  float* dst = acc + static_cast<size_t>(slot) * 1024;
-  if constexpr (!kMma) {
-#pragma unroll
-    for (int u = 0; u < 4; ++u) dst[(r0 + 8 * u) * 32 + c] = sum[u];
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// Block `slot` owns one [8, 128] slot (a 32x32 block).  idx null: entry q
+// goes to slot q % nbrow (the slot's entries are t = slot, e ascending,
+// and need no scan).
+template <bool kMma>
+__global__ void __launch_bounds__(kE12Threads)
+    e12_kernel(const int* __restrict__ idx, int n, int nbrow,
+               const float* __restrict__ a_wide, const float* __restrict__ panel,
+               float* __restrict__ acc, int a_lanes) {
+  __shared__ __align__(16) float ring[kE12Stages * kE12ProductFloats];
+  __shared__ unsigned short hits[kE12Chunk];  // this slot's entries - base
+  __shared__ int warp_total[kE12Warps];
+  const int slot = blockIdx.x;
+  float sum[2][4] = {};
+  if (idx == nullptr) {
+    const int count = slot < nbrow && slot < n ? (n - slot + nbrow - 1) / nbrow : 0;
+    e12_products<kMma>(sum, ring, count, nbrow, a_wide, panel, a_lanes,
+                       [&](int h) { return slot + h * nbrow; });
   } else {
-    const int g = lane >> 2, cc = (lane & 3) * 2;
+    for (int base = 0; base < n; base += kE12Chunk) {
+      const int n_hits = e12_scan(idx, n, base, hits, warp_total);
+      e12_products<kMma>(sum, ring, n_hits, nbrow, a_wide, panel, a_lanes,
+                         [&](int h) { return base + hits[h]; });
+    }
+  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = 16 * (warp >> 1) + (lane >> 2), col = 16 * (warp & 1) + 2 * (lane & 3);
+  float* dst = acc + static_cast<size_t>(slot) * 1024;
 #pragma unroll
-    for (int u = 0; u < 4; ++u) dst[(tm + g + 8 * (u >> 1)) * 32 + tn + cc + (u & 1)] = sum[u];
+  for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) dst[(row + 8 * (u >> 1)) * 32 + col + 8 * nt + (u & 1)] = sum[nt][u];
   }
 }
 
@@ -585,20 +753,20 @@ int hbsm_e3(const int* idx, int n, const float* v, float* acc, int n_slots, void
   return static_cast<int>(cudaGetLastError());
 }
 
-// e12: order int [n_entries] (entry e * nbrow + t, grouped by slot in
-// ascending order), run_start int [n_slots + 1], a_wide [RA, 32, a_lanes],
-// panel [8 * nbrow, 128], acc [n_slots, 8, 128].
-int hbsm_e12(const int* order, const int* run_start, const float* a_wide,
-             const float* panel, float* acc, int n_slots, int nbrow, int a_lanes,
-             int precision, void* stream) {
+// e12: idx int [n] (16-byte aligned; null: entry q goes to slot q %
+// nbrow), n = RA * nbrow entries e * nbrow + t; a_wide [RA, 32, a_lanes]
+// (a_lanes a multiple of 4), panel [8 * nbrow, 128] -> the whole acc
+// [n_slots, 8, 128].  One launch: each block finds its slot's entries.
+int hbsm_e12(const int* idx, const float* a_wide, const float* panel, float* acc, int n,
+             int n_slots, int nbrow, int a_lanes, int precision, void* stream) {
   if (n_slots == 0) return 0;
+  if (n < 0 || nbrow <= 0 || a_lanes < 32 || a_lanes % 4 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (precision == 0) {
-    e12_kernel<false><<<n_slots, 256, 0, st>>>(order, run_start, a_wide, panel, acc,
-                                               nbrow, a_lanes);
+    e12_kernel<false><<<n_slots, kE12Threads, 0, st>>>(idx, n, nbrow, a_wide, panel, acc, a_lanes);
   } else if (precision == 2) {
-    e12_kernel<true><<<n_slots, 256, 0, st>>>(order, run_start, a_wide, panel, acc,
-                                              nbrow, a_lanes);
+    e12_kernel<true><<<n_slots, kE12Threads, 0, st>>>(idx, n, nbrow, a_wide, panel, acc, a_lanes);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

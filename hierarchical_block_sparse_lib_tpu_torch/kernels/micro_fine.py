@@ -19,8 +19,10 @@ zero.  Sums into one accumulator element run serially, in rep order for
 `micro` and in ascending i or (e, t) order for `e3` and `e12`, in the
 kernel and in the plain versions alike.  `e3` adds the same block for
 every entry, so its slots depend only on how many entries each has: its
-kernel counts them in one launch instead of sorting.  `micro` "wide" and
-"quad" are one function and run one kernel on one tiling.
+kernel counts them in one launch instead of sorting.  `e12`'s kernel is
+one launch too: each block scans the slots for its own entries, in
+order.  `micro` "wide" and "quad" are one function and run one kernel on
+one tiling.
 
 Precision: "highest" is f32 throughout; "default" is one bf16 pass
 (operands rounded to bf16, exact products, f32 sums).
@@ -121,9 +123,9 @@ def _runs(slots, n_slots: int):
 
 def _serial_slot_add(acc_slots, slots, vals):
     """acc_slots[slots[j]] += vals[j] for each entry j with a slot in
-    range, serially in ascending j within a slot (the kernels' runs, from
-    `_runs`): one pass per rank in a run, so no pass touches a slot twice
-    and every add is one f32 rounding."""
+    range, serially in ascending j within a slot (the kernels' order), from
+    the runs of `_runs`: one pass per rank in a run, so no pass touches a
+    slot twice and every add is one f32 rounding."""
     n_slots = acc_slots.shape[0]
     order, run_start = (t.long() for t in _runs(slots, n_slots))
     pos = torch.arange(order.shape[0], device=slots.device)
@@ -196,7 +198,7 @@ SIGNATURES = {
     "hbsm_micro_flatten": [_P, _I, _I, _P],
     "hbsm_e2": [_P, _P, _I, _P],
     "hbsm_e3": [_P, _I, _P, _P, _I, _P],
-    "hbsm_e12": [_P] * 5 + [_I] * 4 + [_P],
+    "hbsm_e12": [_P] * 4 + [_I] * 5 + [_P],
 }
 
 
@@ -303,18 +305,21 @@ def e12(a_wide, panel, idx, precision: str = "highest", do_adds: bool = True):
     accumulator (slot t when not `do_adds`) += X_t L_e, with X_t the
     panel's rows 8t..8t+7 read as a row-major 32x32 and L_e =
     a_wide[e][:, 0:32]; slots are [8, 128] row-major readings of 32x32
-    blocks.  Returns (acc[0:8], acc [4096, 128])."""
+    blocks, each summing its products serially in ascending (e, t) order
+    (slots out of [0, 512) are dropped).  Returns (acc[0:8], acc [4096,
+    128]).  One kernel launch, nothing else on the device: each block of
+    the kernel finds its slot's entries itself."""
     if a_wide.device.type == "cpu":
         return e12_reference(a_wide, panel, idx, precision, do_adds)
     ra, nbrow = _check_e12(a_wide, panel, idx)
     tier = _tier(precision)
     device = _on_card("e12", a_wide, panel, idx)
-    n_slots = ACC_ROWS // 8
-    order, run_start = _runs(_e12_slots(idx, ra * nbrow, nbrow, do_adds), n_slots)
+    if a_wide.shape[2] % 4:
+        raise ValueError(f"e12 needs a_wide's rows 16-byte aligned, got {a_wide.shape[2]} lanes")
     acc = torch.empty((ACC_ROWS, 128), dtype=torch.float32, device=device)
-    _launch("e12", device, "hbsm_e12", order.data_ptr(), run_start.data_ptr(),
-            a_wide.data_ptr(), panel.data_ptr(), acc.data_ptr(), n_slots, nbrow,
-            a_wide.shape[2], tier)
+    _launch("e12", device, "hbsm_e12", idx.data_ptr() if do_adds else None,
+            a_wide.data_ptr(), panel.data_ptr(), acc.data_ptr(), ra * nbrow,
+            ACC_ROWS // 8, nbrow, a_wide.shape[2], tier)
     e12.launches += 1
     return acc[0:8], acc
 

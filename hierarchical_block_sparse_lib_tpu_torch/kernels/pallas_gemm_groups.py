@@ -21,6 +21,13 @@ budget, with ``nbc <= 4096``), kept so that both packages pick the same
 backend on the same input; the kernel itself keeps nothing resident and
 its `supported()` has no such gate.
 
+Tiers on the card are those of `rows_spgemm` (the ring engine of
+kernels/csrc/gemm_tile.cuh): "highest" on f32 data is 3xTF32 on wgmma,
+"high" the bf16x3 split and "default" one bf16 pass on mma.sync, bf16
+data one exact bf16 pass.  At b = 128 the kernel splits a slot and orders
+its products as the row-panel and pair-stream kernels do, so the three
+backends give the same bits.
+
 A CPU tensor takes `groups_spgemm_reference`; a CUDA tensor launches the
 kernel or raises.  `groups_spgemm.launches` counts kernel launches.
 """
@@ -43,7 +50,7 @@ from hierarchical_block_sparse_lib_tpu_torch.kernels.pallas_gemm_fine import (
     pair_slots,
     tier_bmm,
 )
-from hierarchical_block_sparse_lib_tpu_torch.kernels.pallas_gemm_rows import _tier
+from hierarchical_block_sparse_lib_tpu_torch.kernels.pallas_gemm_rows import CONFIG_KEYS, _tier
 
 _DTYPES = (torch.float32, torch.bfloat16)
 # The TPU kernel's VMEM budget, which the reference's group-size rule uses.
@@ -257,6 +264,13 @@ def groups_spgemm_reference(
 
 
 _LIB = None
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# The C entries of gemm_groups.cu and their arguments (pointers and the
+# stream as c_void_p, ints as c_int).
+SIGNATURES = {
+    "hbsm_groups_spgemm": [_P] * 10 + [_I] * 10 + [_P],
+    "hbsm_groups_spgemm_config": [_I, _I, _P],
+}
 
 
 def _kernel_lib():
@@ -265,13 +279,30 @@ def _kernel_lib():
         from hierarchical_block_sparse_lib_tpu_torch.kernels import _build
 
         lib = _build.load("gemm_groups")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.hbsm_groups_spgemm.restype = i
-        lib.hbsm_groups_spgemm.argtypes = [p] * 10 + [i] * 10 + [p]
+        for name, args in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.restype, fn.argtypes = _I, args
         lib.hbsm_cuda_error_string.restype = ctypes.c_char_p
-        lib.hbsm_cuda_error_string.argtypes = [i]
+        lib.hbsm_cuda_error_string.argtypes = [_I]
         _LIB = lib
     return _LIB
+
+
+def launch_config(dtype, precision: str) -> dict:
+    """What a launch for this data type and tier gets, read from the
+    library and the card: dynamic shared bytes, resident blocks per SM,
+    registers and local (spill) bytes per thread, threads per block."""
+    lib = _kernel_lib()
+    info = (ctypes.c_int * len(CONFIG_KEYS))()
+    err = lib.hbsm_groups_spgemm_config(
+        int(dtype == torch.bfloat16), _PRECISIONS[_tier(precision, dtype)],
+        ctypes.cast(info, ctypes.c_void_p),
+    )
+    if err != 0:
+        raise RuntimeError(
+            f"groups_spgemm config: {lib.hbsm_cuda_error_string(err).decode()}"
+        )
+    return dict(zip(CONFIG_KEYS, info))
 
 
 def groups_spgemm(

@@ -40,6 +40,9 @@ from hierarchical_block_sparse_lib_tpu_torch.utils.profiling import bound, log
 
 B2_PAIRS = 335_999  # the configured B2's leaf products (plan_spgemm)
 B2_A_BLOCKS = 13_107  # its stored blocks
+# The tier's route in micro_fine.cu: 3xTF32 mma.sync at "highest", one
+# bf16 pass at "default".
+ROUTE = {"highest": "tf32x3", "default": "bf16"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,7 +111,7 @@ def main(device="cuda", sizes: Sizes = Sizes()) -> dict:
             rec = check_and_time(
                 name, lambda p=prec, d=do_adds: mf.e12(a_wide, panel, idx12, p, d),
                 lambda p=prec, d=do_adds: mf.e12_reference(a_wide, panel, idx12, p, d),
-                device, TOL[prec], bound(flops, nbytes, "bf16" if prec == "default" else "fp32"),
+                device, TOL[prec], bound(flops, nbytes, ROUTE[prec]),
             )
             rate = ""
             if rec["ms"] is not None:

@@ -2,7 +2,9 @@
 how many entries each slot has (the property its one-launch kernel rests
 on), `e3` with every entry in one slot against the JAX kernel of
 scripts/micro_fine_kernel2.py in interpret mode, "quad" as the same
-function as "wide", and the ctypes table against the C entries.
+function as "wide", the ctypes table against the C entries, and a model
+of `e12`'s one-launch slot walk against the order the plain version's runs
+give.
 
 R3 is a global of the JAX script, read when `e3` traces; it is set to the
 value test_torch_micro_fine2.py sets, since both files share the module.
@@ -104,3 +106,121 @@ def test_time_micro_designs_needs_a_card(capsys):
 
     assert tmd.main(tmd.THIS_ROOT) == 2
     assert "turn" not in capsys.readouterr().out
+
+
+def test_time_micro_designs_takes_several_roots_and_needs_a_card(tmp_path, capsys):
+    """With variant checkouts beside the parent the timer still measures
+    nothing off the card, and runs no turn."""
+    from hierarchical_block_sparse_lib_tpu_torch.scripts import time_micro_designs as tmd
+
+    roots = [str(tmp_path / name) for name in ("parent", "variant")]
+    assert tmd.main(*roots) == 2
+    assert "turn" not in capsys.readouterr().out
+
+
+def test_e12_records_bound_on_the_tiers_route():
+    """micro_fine_kernel2's E12 records take the bound of the route each
+    tier runs (3xTF32 at "highest", bf16 at "default"), on the script's
+    flops and bytes."""
+    from hierarchical_block_sparse_lib_tpu_torch.scripts import micro_fine_kernel2 as m2
+    from hierarchical_block_sparse_lib_tpu_torch.utils.profiling import bound
+
+    recs = m2.main("cpu", m2.TINY)
+    ra, nbrow = m2.TINY.RA, m2.TINY.NBROW
+    flops = 2 * 32**3 * ra * nbrow
+    nbytes = 4 * (ra * 32 * 32 + 8 * nbrow * 128 + ra * nbrow) + 4 * mf.ACC_ROWS * 128
+    for prec, route in (("highest", "tf32x3"), ("default", "bf16")):
+        for adds in (True, False):
+            rec = recs[f"E12 {prec} adds={adds}"]
+            assert (rec["bound_ms"], rec["bound_by"]) == bound(flops, nbytes, route)
+
+
+def _e12_source():
+    import os
+
+    return open(os.path.join(os.path.dirname(mf.__file__), "csrc", "micro_fine.cu")).read()
+
+
+def _e12_scan_shape():
+    """(entries a chunk, warps, entries a lane takes a step, entries a
+    step) as micro_fine.cu's e12_scan declares them."""
+    import re
+
+    src = _e12_source()
+    chunk, warps = (int(re.search(rf"constexpr int {name} = (\d+)", src).group(1))
+                    for name in ("kE12Chunk", "kE12Warps"))
+    per_lane = int(re.search(r"int first = base \+ kE12WarpSpan \* warp \+ (\d+) \* lane;",
+                             src).group(1))
+    step = int(re.search(r"kSteps = kE12WarpSpan / (\d+);", src).group(1))
+    return chunk, warps, per_lane, step
+
+
+def e12_slot_walk(slots, n_slots):
+    """A numpy model of the order in which the `e12` kernel's block for
+    each slot is written to run its entries (micro_fine.cu's e12_scan,
+    whose chunk, warp count, lane width and step width it reads from the
+    source): idx in chunks, warp w scanning the chunk's w-th share in
+    steps, lane l taking entries per_lane * l + [0, per_lane) of a step.  A
+    hit's place in the chunk's list is the hits of earlier warps (their
+    totals), then of the warp's earlier steps, then of lower lanes in its
+    step (ballots), then its own lower bits.  Slots out of [0, n_slots)
+    belong to no block.  It models the design, not the CUDA code: chip_smoke
+    holds the kernel itself against its plain version on the card."""
+    chunk, warps, per_lane, step = _e12_scan_shape()
+    assert step == 32 * per_lane  # a step is one load of every lane
+    steps = chunk // warps // step
+    walks = [[] for _ in range(n_slots)]
+    for base in range(0, len(slots), chunk):
+        part = np.asarray(slots[base:base + chunk])
+        padded = np.full(chunk, -1, np.int64)
+        padded[:part.size] = part
+        grid = padded.reshape(warps, steps, 32, per_lane)
+        local = np.arange(chunk).reshape(warps, steps, 32, per_lane)
+        for p in np.unique(part[(part >= 0) & (part < n_slots)]):
+            flags = grid == p
+            lane_cnt = flags.sum(axis=3)
+            step_cnt = lane_cnt.sum(axis=2)
+            warp_cnt = step_cnt.sum(axis=1)
+            pos = ((np.cumsum(warp_cnt) - warp_cnt)[:, None, None, None]
+                   + (np.cumsum(step_cnt, axis=1) - step_cnt)[:, :, None, None]
+                   + (np.cumsum(lane_cnt, axis=2) - lane_cnt)[:, :, :, None]
+                   + np.cumsum(flags, axis=3) - 1)
+            hits = np.empty(int(warp_cnt.sum()), np.int64)
+            hits[pos[flags]] = local[flags]
+            walks[p].extend(base + hits)
+    return walks
+
+
+def _e12_cases():
+    rng = np.random.default_rng(12)
+    nbrow = 26
+    n_small, n_two = 5 * nbrow, 320 * nbrow  # within one chunk, and past it
+    return {
+        "random": rng.integers(-20, 530, n_small),
+        "random, two chunks": rng.integers(-20, 530, n_two),
+        "all in one slot": np.full(n_two, 7),
+        "none in range": rng.choice([-3, 512, 900], n_two),
+        "slot t (the order without adds)": np.arange(n_two) % nbrow,
+    }
+
+
+@pytest.mark.parametrize("case", list(_e12_cases()))
+def test_e12_slot_walk_is_the_order_of_the_runs(case):
+    """Per slot, the walk the kernel is designed to do (e12_slot_walk) is
+    the slot's entries in ascending (e, t) order, the order `_runs` gives
+    the plain version; out-of-range slots are dropped."""
+    slots = _e12_cases()[case].astype(np.int32)
+    walks = e12_slot_walk(slots, N_SLOTS)
+    order, run_start = (t.numpy() for t in mf._runs(torch.from_numpy(slots), N_SLOTS))
+    for p in range(N_SLOTS):
+        np.testing.assert_array_equal(walks[p], order[run_start[p]:run_start[p + 1]],
+                                      err_msg=f"slot {p}")
+    in_range = int(((slots >= 0) & (slots < N_SLOTS)).sum())
+    assert sum(len(w) for w in walks) == in_range
+    if case.startswith("slot t"):
+        # Without the adds the kernel scans nothing: slot t < nbrow walks
+        # entries t, t + nbrow, ... (e ascending), the same order.
+        nbrow = 26
+        for p in range(N_SLOTS):
+            want = np.arange(p, len(slots), nbrow) if p < nbrow else np.zeros(0, np.int64)
+            np.testing.assert_array_equal(walks[p], want, err_msg=f"slot {p}")

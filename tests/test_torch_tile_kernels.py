@@ -1,7 +1,8 @@
-"""The 128-tile GEMM kernels' contracts on the CPU (gemm_rows.cu, gemm_stream.cu
-through kernels/csrc/gemm_tile.cuh): the ctypes tables against the C
-entries, a plain model of the 3xTF32 split that "highest" runs on the
-tensor cores, and the two-checkout timer without a card.
+"""The 128-tile GEMM kernels' contracts on the CPU (gemm_rows.cu,
+gemm_stream.cu, gemm_groups.cu through kernels/csrc/gemm_tile.cuh): the
+ctypes tables against the C entries, a plain model of the 3xTF32 split
+that "highest" runs on the tensor cores, and the two-checkout timer
+without a card.
 
 The model: TF32 keeps 10 of float32's 23 fraction bits; `cvt.rna.tf32.f32`
 rounds to nearest with ties away from zero, which on float32 bits is "add
@@ -17,6 +18,7 @@ import re
 import numpy as np
 import pytest
 
+from hierarchical_block_sparse_lib_tpu_torch.kernels import pallas_gemm_groups as pg
 from hierarchical_block_sparse_lib_tpu_torch.kernels import pallas_gemm_rows as pr
 from hierarchical_block_sparse_lib_tpu_torch.kernels import pallas_gemm_stream as ps
 
@@ -36,7 +38,8 @@ def tf32_split(x):
     return big, tf32_rna(x - big)
 
 
-@pytest.mark.parametrize("source, module", [("gemm_rows.cu", pr), ("gemm_stream.cu", ps)])
+@pytest.mark.parametrize("source, module", [("gemm_rows.cu", pr), ("gemm_stream.cu", ps),
+                                            ("gemm_groups.cu", pg)])
 def test_ctypes_signatures_match_the_c_entries(source, module):
     """Each C entry takes as many arguments, pointers, floats and ints in the
     same places, as the wrapper's ctypes table declares (a short table
@@ -115,4 +118,14 @@ def test_time_tile_designs_needs_a_card(capsys):
     from hierarchical_block_sparse_lib_tpu_torch.scripts import time_tile_designs as ttd
 
     assert ttd.main(ttd.THIS_ROOT) == 2
+    assert "turn" not in capsys.readouterr().out
+
+
+def test_time_tile_designs_takes_several_roots_and_needs_a_card(tmp_path, capsys):
+    """With variant checkouts beside the parent the tile timer still
+    measures nothing off the card, and runs no turn."""
+    from hierarchical_block_sparse_lib_tpu_torch.scripts import time_tile_designs as ttd
+
+    roots = [str(tmp_path / name) for name in ("parent", "variant")]
+    assert ttd.main(*roots) == 2
     assert "turn" not in capsys.readouterr().out
