@@ -94,7 +94,20 @@ final line):
     both bounds), scripts/
     profile_fine_pieces.py: the planned B2 multiply in parts, and scripts/
     time_fine_kernel.py: the fine kernel alone at B2's structure for each
-    leaf and tier, and its launch sizes swept.
+    leaf and tier, and its launch sizes swept;
+15. (run after phase 13) the occupancy tiers and B4: B4 at 8192²
+    (bench.py:831-840: random, 50% block density, leaf 128, seed 4) through
+    the host plans, the backend auto picks, the planned spgemm and
+    spgemm_colslab(n_slabs=4), against the counters, an f64 product and
+    each other (bitwise), rows_spgemm against its chunked plain version;
+    B4 at its configured 32768² (BASELINE.json:10) through plan_colslab(8)
+    and spgemm_colslab on the row-panel kernel, against the plan's
+    counters and an f64 product taken a slab of columns at a time; times
+    in turns beside the dense anchors (TF32 off), the kernel's device time
+    per launch and both bounds, the peak memory; B1's band tier and
+    leafpack against the f64 oracle and phase 12's product; kpack at B2
+    against phase 4's planned fine product coarsened; spmm and spmv at
+    B2's A against f64.
 
 Phase 2 also prints each fine-kernel launch's k-chunk, shared memory,
 occupancy, registers and spills at B2's B row cap.  Prints the card line
@@ -107,6 +120,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -1325,7 +1339,11 @@ def b1_path(card):
                        20, card, top=4)
     entry = dict(max_abs_err=abs_err, ms=k_ms, plain_ms=p_ms, library_ms=None,
                  bound=bound(flops, nbytes, "tf32x3"), **g_bounds)
-    return entry, got["groups_spgemm"]
+    # Phase 15's band tier is held against this product and timed beside
+    # the planned product on "pallas".
+    b1 = dict(a16=a16, C=Cu, fine_pairs=fine_pairs,
+              pallas=lambda: hbsm.spgemm(A, A, pc, oc, plan=plan, backend="pallas", **caps))
+    return entry, got["groups_spgemm"], b1
 
 
 def b2_tile128(card):
@@ -1439,6 +1457,355 @@ def b2_tile128(card):
                                        bound=b2t_bound, library_ms=None, **v_bounds),
     }
     return entries, got["gather_gemm_accumulate_stream"], v1["gather_gemm_accumulate"]
+
+
+def flags_set(info) -> list:
+    return [f for f in ("pair_overflow", "out_overflow", "row_overflow", "plan_mismatch")
+            if bool(getattr(info, f))]
+
+
+def b4_small(card):
+    """Phase 15, B4 at 8192² (bench.py:831-840): the host plans and the
+    backend auto runs, the planned spgemm and spgemm_colslab(n_slabs=4)
+    against the counters, an f64 product and each other (bitwise), the
+    row-panel kernel against its plain version, times in turns, and the
+    kernel's device time against both bounds.  Returns the kernel
+    launches of its path."""
+    import torch
+
+    import hierarchical_block_sparse_lib_tpu_torch as hbsm
+    from hierarchical_block_sparse_lib_tpu_torch.kernels import pallas_gemm_rows as pr
+    from hierarchical_block_sparse_lib_tpu_torch.ops.slab import plan_colslab
+    from hierarchical_block_sparse_lib_tpu_torch.ops.spgemm import (
+        matmul_precision,
+        plan_spgemm_ex,
+        resolve_backend,
+    )
+    from hierarchical_block_sparse_lib_tpu_torch.utils.generators import random_block_matrix
+
+    A = random_block_matrix(8192, 128, 0.5, seed=4)
+    pc, oc, mbr, mcr = plan_spgemm_ex(A, A)
+    gplan = hbsm.plan_groups(A, A)
+    caps = dict(row_caps=(mbr, mcr), group_caps=gplan.caps if gplan is not None else None)
+    backend = resolve_backend(A.block_size, A.dtype, A.nb_cols, pc, **caps)
+    plan = hbsm.make_plan(A, A, pc)
+    cplan = plan_colslab(A, A, 4)
+    print(f"[B4] 8192^2 b=128 50% seed 4: {int(A.nnz)} blocks, pairs {pc}, out {oc}, row caps "
+          f"({mbr}, {mcr}), {pc / oc:.1f} products a slot; plan_groups -> "
+          f"{gplan.caps if gplan is not None else None}; auto -> {backend!r}")
+    torch.cuda.synchronize()
+    reset_counts()
+    C, info = hbsm.spgemm(A, A, pc, oc, plan=plan, **caps)
+    Cs, si = hbsm.spgemm_colslab(A, A, n_slabs=4)
+    torch.cuda.synchronize()
+    kernel = "groups_spgemm" if backend == "groups" else "rows_spgemm"
+    want = {"rows_spgemm": 4}
+    want[kernel] = want.get(kernel, 0) + 1
+    got = launched(want, "B4 8192^2 (planned spgemm, spgemm_colslab x4)")
+    for name, i in (("planned spgemm", info), ("spgemm_colslab", si)):
+        n = (int(i.n_block_pairs), int(i.n_out_blocks))
+        if n != (pc, oc) or flags_set(i):
+            raise AssertionError(f"B4 {name}: counters {n} vs plan ({pc}, {oc}), flags {flags_set(i)}")
+    if cplan.total_pairs != pc or cplan.n_out != oc:
+        raise AssertionError(f"B4 colslab plan ({cplan.total_pairs}, {cplan.n_out})")
+    dA = hbsm.to_dense(A).double()
+    err = rel_err(hbsm.to_dense(C).double(), dA @ dA)
+    del dA
+    print(f"[B4] launches {got}; counters as planned, no flag; planned spgemm vs f64 "
+          f"product: rel err {err:.3e}")
+    if err > 1e-5:
+        raise AssertionError(f"B4 rel err {err:.3e} > 1e-5")
+    # The same kernel unsplit: slabs give each slot the same products in
+    # the same order, so the bits must agree.
+    Cu = C if backend == "rows" else hbsm.spgemm(A, A, pc, oc, plan=plan, backend="rows",
+                                                 row_caps=(mbr, mcr))[0]
+    same = torch.equal(Cs.ids, Cu.ids) and torch.equal(Cs.data, Cu.data)
+    diff = rel_err(Cs.data, Cu.data) if torch.equal(Cs.ids, Cu.ids) else float("inf")
+    print(f"[B4] spgemm_colslab(n_slabs=4) vs the unsplit product on 'rows': "
+          f"{'bitwise equal' if same else f'NOT bitwise equal, rel diff {diff:.3e}'}")
+    if not same and not diff <= 1e-6:
+        raise AssertionError(f"B4 colslab vs unsplit rel diff {diff:.3e} > 1e-6")
+    del Cs, Cu
+    rargs = (A.ids, A.data, A.ids, A.data, C.ids, A.nb_rows, A.nb_rows, A.nb_cols, oc, mbr, mcr)
+    rk = pr.rows_spgemm(*rargs)
+    rp = pr.rows_spgemm_reference(*rargs)
+    torch.cuda.synchronize()
+    abs_err, rel = float((rk - rp).abs().max()), rel_err(rk, rp)
+    del rk, rp
+    print(f"[B4] rows_spgemm vs plain ({pr.PLAIN_PAIR_CHUNK} pairs a batched product): "
+          f"max abs err {abs_err:.3e}, rel {rel:.3e}")
+    if rel > ROWS_TOL:
+        raise AssertionError(f"B4 rows_spgemm vs plain rel err {rel:.3e}")
+    D = hbsm.to_dense(A)
+
+    def dense():
+        with matmul_precision("highest", D.device):  # TF32 off
+            torch.matmul(D, D)
+
+    times = in_turns({
+        "planned spgemm": lambda: hbsm.spgemm(A, A, pc, oc, plan=plan, **caps),
+        "spgemm_colslab": lambda: hbsm.spgemm_colslab(A, A, plan=cplan),
+        "dense matmul": dense,
+    })
+    flops, nbytes = 2 * 128**3 * pc, A.data.numel() * 4 + oc * 128 * 128 * 4
+    dev = device_profile("rows_spgemm at B4 8192^2", lambda: pr.rows_spgemm(*rargs), 5, card,
+                         top=3)
+    b = tile_bounds(flops, nbytes, per_call_us(dev, 5, "rows_spgemm_kernel"))
+    print(f"[time] {card}: B4 8192^2, CUDA events, median of 7 after 2 warm-up calls, "
+          f"in order then reversed (the colslab call with its plan)")
+    for name, (t1, t2) in times.items():
+        print(f"[time]   {name:15s} {t1:.3f} / {t2:.3f} ms"
+              + ("  (8192^2 f32, TF32 off)" if name == "dense matmul" else ""))
+    print(f"[time]   {card}: rows_spgemm {1e3 * (b['device_ms'] or 0):.1f} us per launch "
+          f"({pc} products); bounds FP32 {b['bound_fp32_ms']:.3f} ms ({pct(b['share_fp32'])}), "
+          f"3xTF32 {b['bound_route_ms']:.3f} ms ({pct(b['share_route'])})")
+    return got
+
+
+def b4_full(card):
+    """Phase 15, B4 at its configured size (BASELINE.json:10, bench.py:
+    267-300 and 844-850): 32768², 50% block density, through
+    plan_colslab(8) and spgemm_colslab on the row-panel kernel, against the
+    plan's counters and an f64 product taken one slab of columns at a
+    time; then the call, the slab-wise dense anchor (bench.py:323-353) and
+    the whole dense product in turns, the kernel's device time, the
+    bounds and the peak memory.  Returns the kernel launches of its path."""
+    import torch
+
+    import hierarchical_block_sparse_lib_tpu_torch as hbsm
+    from hierarchical_block_sparse_lib_tpu_torch.ops.slab import plan_colslab
+    from hierarchical_block_sparse_lib_tpu_torch.ops.spgemm import matmul_precision
+    from hierarchical_block_sparse_lib_tpu_torch.utils.generators import random_block_matrix
+
+    n, n_slabs = 32768, 8
+    t0 = time.perf_counter()
+    A = random_block_matrix(n, 128, 0.5, seed=4)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plan = plan_colslab(A, A, n_slabs)
+    plan_s = time.perf_counter() - t0
+    print(f"[B4full] {n}^2 b=128 50% seed 4: {int(A.nnz)} blocks "
+          f"({A.data.numel() * 4 / 1e9:.2f} GB), made in {gen_s:.1f} s; plan_colslab({n_slabs}) "
+          f"{plan_s:.2f} s on the host: pairs {plan.total_pairs}, out {plan.n_out} blocks "
+          f"({plan.n_out * 128 * 128 * 4 / 1e9:.2f} GB), "
+          f"{plan.total_pairs / plan.n_out:.1f} products a slot")
+    for k, sl in enumerate(plan.slabs):
+        print(f"[B4full]   slab {k}: cols [{sl.j0}, {sl.j1}), B blocks {sl.cap}, pairs "
+              f"{sl.pair_cap}, out {sl.out_cap}, row caps {sl.row_caps}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_counts()
+    t0 = time.perf_counter()
+    C, info = hbsm.spgemm_colslab(A, A, plan=plan)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    got = launched({"rows_spgemm": n_slabs}, "B4full (spgemm_colslab)")
+    peak_call = torch.cuda.max_memory_allocated() - base
+    cnt = (int(info.n_block_pairs), int(info.n_out_blocks))
+    if cnt != (plan.total_pairs, plan.n_out) or flags_set(info):
+        raise AssertionError(f"B4full counters {cnt} vs plan, flags {flags_set(info)}")
+    print(f"[B4full] launches {got}; first call {first_s:.2f} s; counters {cnt} as planned, no "
+          f"flag; the call's peak above its inputs {peak_call / 2**30:.2f} GiB")
+    dA = hbsm.to_dense(A).double()
+    dC = hbsm.to_dense(C)
+    del C
+    w = A.n_cols // n_slabs
+    worst = scale = 0.0
+    for s in range(n_slabs):
+        exact = dA @ dA[:, s * w:(s + 1) * w]
+        scale = max(scale, float(exact.abs().max()))
+        worst = max(worst, float((dC[:, s * w:(s + 1) * w].double() - exact).abs().max()))
+        del exact
+    err = worst / scale
+    del dA, dC
+    torch.cuda.empty_cache()
+    print(f"[B4full] vs the f64 product (one slab of columns at a time): rel err {err:.3e}")
+    if err > 1e-5:
+        raise AssertionError(f"B4full rel err {err:.3e} > 1e-5")
+    D = hbsm.to_dense(A)
+
+    def slabwise():
+        with matmul_precision("highest", D.device):  # TF32 off
+            for s in range(n_slabs):
+                torch.matmul(D, D[:, s * w:(s + 1) * w])
+
+    def whole():
+        with matmul_precision("highest", D.device):
+            torch.matmul(D, D)
+
+    times = in_turns({"spgemm_colslab": lambda: hbsm.spgemm_colslab(A, A, plan=plan),
+                      "dense slab-wise": slabwise, "dense whole": whole})
+    del D
+    torch.cuda.empty_cache()
+    flops = 2 * 128**3 * plan.total_pairs
+    nbytes = A.data.numel() * 4 + plan.n_out * 128 * 128 * 4
+    dev = device_profile("spgemm_colslab at B4full", lambda: hbsm.spgemm_colslab(A, A, plan=plan),
+                         2, card, unit="call", top=6)
+    b = tile_bounds(flops, nbytes, per_call_us(dev, 2, "rows_spgemm_kernel"))
+    call = statistics.median(times["spgemm_colslab"])
+    dense_whole = statistics.median(times["dense whole"])
+    dense_slab = statistics.median(times["dense slab-wise"])
+    print(f"[time] {card}: B4full, CUDA events, median of 7 after 2 warm-up calls, in order "
+          f"then reversed")
+    for name, (t1, t2) in times.items():
+        print(f"[time]   {name:15s} {t1:.1f} / {t2:.1f} ms"
+              + ("" if name == "spgemm_colslab" else f"  ({n}^2 f32, TF32 off)"))
+    per_launch = None if b["device_ms"] is None else 1e3 * b["device_ms"] / n_slabs
+    print(f"[time]   {card}: rows_spgemm "
+          + ("not measured" if per_launch is None else f"{per_launch:.1f} us")
+          + f" per slab launch ({plan.total_pairs / n_slabs:.0f} products; bounds a launch FP32 "
+          f"{b['bound_fp32_ms'] / n_slabs:.2f} ms, 3xTF32 {b['bound_route_ms'] / n_slabs:.2f} ms); "
+          f"the call's kernels against bounds FP32 {b['bound_fp32_ms']:.1f} ms "
+          f"({pct(b['share_fp32'])}), 3xTF32 {b['bound_route_ms']:.1f} ms "
+          f"({pct(b['share_route'])}); bytes {1e3 * nbytes / 3.35e12:.2f} ms")
+    print(f"[time]   {card}: the call {call:.1f} ms = {100 * b['bound_route_ms'] / call:.1f}% of the "
+          f"{b['bound_route_ms']:.1f} ms 3xTF32 bound; {dense_whole / call:.2f}x faster than the "
+          f"whole dense product, {dense_slab / call:.2f}x faster than the slab-wise one; peak "
+          f"device memory of the phase {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return got
+
+
+def band_tier(card, b1):
+    """Phase 15, B1's band tier (bench.py:727-764): band_from_blocks and
+    band_mm on the leaf-16 banded 4096^2, band 64, against the f64 oracle
+    and phase 12's product (band_to_blocks, coarsened x8 as phase 12's
+    input), and leafpack on the same input; both timed in turns with phase
+    12's planned spgemm on "pallas"."""
+    import torch
+
+    import hierarchical_block_sparse_lib_tpu_torch as hbsm
+
+    a16 = b1["a16"]
+    torch.cuda.synchronize()
+    reset_counts()
+    Ab = hbsm.band_from_blocks(a16, 64)
+    Cb = hbsm.band_mm(Ab, Ab)
+    lplan = hbsm.plan_leafpack(a16, a16)
+    Cl, li = hbsm.leafpack_spgemm(a16, a16, lplan)
+    torch.cuda.synchronize()
+    launched({}, "band tier and leafpack (torch.bmm, no kernel of the port)")
+    d16 = hbsm.to_dense(a16).double()
+    exact = d16 @ d16
+    del d16
+    err_b = rel_err(hbsm.band_to_dense(Cb).double(), exact)
+    coarse = hbsm.band_to_blocks(Cb, 16)
+    coarse = hbsm.coarsen(coarse, 8, cap=hbsm.plan_coarsen(coarse, 8))
+    err_12 = rel_err(hbsm.to_dense(coarse), hbsm.to_dense(b1["C"]))
+    err_l = rel_err(hbsm.to_dense(Cl).double(), exact)
+    n_leaf = int(li.n_leaf_multiplies)
+    print(f"[band] B1 band tier: {Ab}, C {Cb}; vs f64 oracle rel err {err_b:.3e}; "
+          f"band_to_blocks(16) coarsened x8 vs phase 12's product rel err {err_12:.3e}")
+    print(f"[band] leafpack: S={lplan.strips} La={lplan.la} Lc={lplan.lc}, inflation "
+          f"{lplan.inflation:.2f}x, leaf multiplies {n_leaf}, out {int(li.n_out_blocks)}; vs f64 "
+          f"oracle rel err {err_l:.3e}")
+    if max(err_b, err_12, err_l) > 1e-5:
+        raise AssertionError(f"band tier rel errs {err_b:.3e}, {err_12:.3e}, {err_l:.3e}")
+    if n_leaf != b1["fine_pairs"] or flags_set(li):
+        raise AssertionError(f"leafpack counter {n_leaf} vs {b1['fine_pairs']}, flags {flags_set(li)}")
+    times = in_turns({"band_mm": lambda: hbsm.band_mm(Ab, Ab),
+                      "leafpack_spgemm": lambda: hbsm.leafpack_spgemm(a16, a16, lplan),
+                      "planned spgemm on 'pallas'": b1["pallas"]})
+    print(f"[time] {card}: B1, CUDA events, median of 7 after 2 warm-up calls, in order then "
+          f"reversed")
+    for name, (t1, t2) in times.items():
+        print(f"[time]   {name:27s} {t1:.4f} / {t2:.4f} ms")
+
+
+def kpack_b2(card, b2):
+    """Phase 15, B2's packed contraction (bench.py:585-648): plan_kpack at
+    the configured B2, its product against phase 4's planned fine product
+    coarsened to 128-wide tiles, and both timed in turns."""
+    import torch
+
+    import hierarchical_block_sparse_lib_tpu_torch as hbsm
+
+    A, Af, plan, pc, oc, caps = b2
+    t0 = time.perf_counter()
+    kplan = hbsm.plan_kpack(A, A, tile=128, n_groups=32)
+    plan_s = time.perf_counter() - t0
+    print(f"[kpack] B2: plan_kpack {plan_s:.2f} s on the host: tiles {kplan.n_tiles}, A columns "
+          f"{kplan.n_a_cols}, B rows {kplan.n_b_rows}, {len(kplan.a_src)} groups, panel "
+          f"inflation {kplan.inflation:.2f}x ({kplan.panel_flops / 1e9:.1f} GFLOP of panels), "
+          f"leaf pairs {kplan.n_leaf_pairs}")
+    if kplan.n_leaf_pairs != pc:
+        raise AssertionError(f"kpack leaf pairs {kplan.n_leaf_pairs} vs the fine plan's {pc}")
+    torch.cuda.synchronize()
+    reset_counts()
+    Ck, ki = hbsm.kpack_spgemm(A, A, kplan)
+    Cf, _ = hbsm.fine_matmul(Af, Af, pc, oc, caps, plan=plan)
+    torch.cuda.synchronize()
+    launched({"fine_spgemm": 1}, "kpack and its reference (planned fine_matmul)")
+    cf = hbsm.fine_unpack(Cf)
+    ref = hbsm.coarsen(cf, 4, cap=hbsm.plan_coarsen(cf, 4))
+    if not torch.equal(Ck.ids, ref.ids) or flags_set(ki):
+        raise AssertionError(f"kpack tiles differ from the coarsened fine product, flags "
+                             f"{flags_set(ki)}")
+    err = rel_err(Ck.data, ref.data)
+    del cf, ref, Cf
+    print(f"[kpack] vs phase 4's planned fine product coarsened x4: ids equal, rel err {err:.3e}")
+    if err > 1e-5:
+        raise AssertionError(f"kpack rel err {err:.3e} > 1e-5")
+    times = in_turns({"kpack_spgemm": lambda: hbsm.kpack_spgemm(A, A, kplan),
+                      "planned fine_matmul": lambda: hbsm.fine_matmul(Af, Af, pc, oc, caps,
+                                                                      plan=plan)})
+    print(f"[time] {card}: B2, CUDA events, median of 7 after 2 warm-up calls, in order then "
+          f"reversed")
+    for name, (t1, t2) in times.items():
+        print(f"[time]   {name:20s} {t1:.3f} / {t2:.3f} ms")
+
+
+def spmm_b2(card, b2):
+    """Phase 15, spmm and spmv at B2's A with a 128-column dense right-hand
+    side, against f64, and their times."""
+    import torch
+
+    import hierarchical_block_sparse_lib_tpu_torch as hbsm
+
+    A = b2[0]
+    rng = np.random.default_rng(9)
+    X = torch.from_numpy(rng.standard_normal((A.n_cols, 128)).astype(np.float32)).to(DEVICE)
+    torch.cuda.synchronize()
+    reset_counts()
+    Y = hbsm.spmm(A, X)
+    y = hbsm.spmv(A, X[:, 0])
+    torch.cuda.synchronize()
+    launched({}, "spmm and spmv (torch.bmm, no kernel of the port)")
+    dA = hbsm.to_dense(A).double()
+    exact = dA @ X.double()
+    del dA
+    err, err_v = rel_err(Y.double(), exact), rel_err(y.double(), exact[:, 0])
+    print(f"[spmm] B2's A @ X[{A.n_cols}, 128]: vs f64 rel err {err:.3e}; spmv {err_v:.3e}")
+    if max(err, err_v) > 1e-5:
+        raise AssertionError(f"spmm/spmv rel err {err:.3e}, {err_v:.3e}")
+    times = in_turns({"spmm": lambda: hbsm.spmm(A, X), "spmv": lambda: hbsm.spmv(A, X[:, 0])})
+    print(f"[time] {card}: spmm / spmv at B2, CUDA events, median of 7 after 2 warm-up calls")
+    for name, (t1, t2) in times.items():
+        print(f"[time]   {name:5s} {t1:.4f} / {t2:.4f} ms")
+
+
+def occupancy_phase(card, b1, b2):
+    """Phase 15: the occupancy tiers and B4.  Returns rows_spgemm's
+    launches on its paths (B4 at 8192^2 and at 32768^2)."""
+    import torch
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    print(f"[mem] {card}: before phase 15 {torch.cuda.memory_allocated() / 2**30:.2f} GiB in use")
+    small = b4_small(card)
+    torch.cuda.empty_cache()
+    full = b4_full(card)
+    torch.cuda.empty_cache()
+    band_tier(card, b1)
+    kpack_b2(card, b2)
+    spmm_b2(card, b2)
+    rows = small.get("rows_spgemm", 0) + full["rows_spgemm"]
+    print(f"[phase15] {time.perf_counter() - t0:.1f} s; rows_spgemm launches {rows} "
+          f"(B4 8192^2 {small.get('rows_spgemm', 0)}, B4full {full['rows_spgemm']})")
+    return rows, small.get("groups_spgemm", 0)
 
 
 def small_micro(card):
@@ -1705,6 +2072,7 @@ def micro_path(card, fine_ns_per_pair):
 def main() -> int:
     import torch
 
+    script_t0 = time.perf_counter()
     print(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
           f"cuda {torch.version.cuda}")
     if not torch.cuda.is_available():
@@ -1816,6 +2184,7 @@ def main() -> int:
           f"-> {flops / fine_plain_ms / 1e6:.1f} GFLOP/s")
     fine_bound = bound(flops, 2 * Af.data.numel() * 4 + oc * b * b * 4)
     fine_ns_per_pair = fine_ms / pc * 1e6
+    b2 = (A, Af, plan, pc, oc, (mbr, mcr))  # phase 15's kpack and spmm (0.1 GB)
     del Af, plan, A
     torch.cuda.empty_cache()
 
@@ -1839,9 +2208,15 @@ def main() -> int:
 
     # Phases 12 and 13: B1 on the row-group kernel; B2-tile128 on the
     # pair-stream kernel and the v1 call.
-    entries["groups_spgemm"], b1_launches = b1_path(card)
+    entries["groups_spgemm"], b1_launches, b1 = b1_path(card)
     stream_entries, b2t_launches, v1_launches = b2_tile128(card)
     entries.update(stream_entries)
+
+    # Phase 15: the occupancy tiers and B4 (B3's and B2-tile128's tensors
+    # are freed by now).
+    b4_rows, b4_groups = occupancy_phase(card, b1, b2)
+    del b1, b2
+    torch.cuda.empty_cache()
 
     # Phase 14: the micro kernels at small shapes, then the measurement
     # scripts at their shapes and the B2 multiply in parts.
@@ -1856,12 +2231,15 @@ def main() -> int:
         bound=fine_bound, library_ms=None,
     )
     launches = dict(
-        b3_launches, fine_spgemm=fine_launches, groups_spgemm=b1_launches,
+        b3_launches, fine_spgemm=fine_launches, groups_spgemm=b1_launches + b4_groups,
         gather_gemm_accumulate_stream=b2t_launches + purify_launches,
         gather_gemm_accumulate=v1_launches, **micro_launches,
     )
+    launches["rows_spgemm"] += b4_rows
     print(f"[launches] gather_gemm_accumulate_stream: {b2t_launches} on B2-tile128 + "
-          f"{purify_launches} in purify on B3")
+          f"{purify_launches} in purify on B3; rows_spgemm: {b3_launches['rows_spgemm']} on "
+          f"B3 + {b4_rows} on B4 (phase 15)")
+    print(f"[time] script wall {time.perf_counter() - script_t0:.1f} s")
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel never launched on its path: {launches}")
     rows_out = []

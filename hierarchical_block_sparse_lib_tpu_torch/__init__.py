@@ -16,8 +16,12 @@ purification at 128-wide leaves (``profile_purify`` -> ``plan_purify``
 the kernels of ``kernels/pallas_gemm_rows.py::rows_spgemm``,
 ``kernels/pallas_gemm_stream.py`` and ``kernels/pallas_norms.py``; and
 the eager ``matmul`` with ``plan_groups`` on the row-group kernel of
-``kernels/pallas_gemm_groups.py``.  Constructors build on the CUDA card unless
-given another ``device``.
+``kernels/pallas_gemm_groups.py``; and the occupancy tiers, whose dense
+products are batched `torch.bmm`: the column-slab tier ``spgemm_colslab``
+(each slab on the row-panel kernel), the dense band (``BandMatrix``,
+``band_*``), leaf-strip packing (``plan_leafpack``/``leafpack_spgemm``),
+contraction packing (``plan_kpack``/``kpack_spgemm``) and ``spmm``/``spmv``.
+Constructors build on the CUDA card unless given another ``device``.
 """
 
 from hierarchical_block_sparse_lib_tpu_torch.core.block_matrix import (
@@ -74,6 +78,32 @@ from hierarchical_block_sparse_lib_tpu_torch.ops.fine import (
     fine_unpack,
     make_fine_plan,
 )
+from hierarchical_block_sparse_lib_tpu_torch.ops.band import (
+    BandMatrix,
+    band_add,
+    band_frob_squared,
+    band_from_blocks,
+    band_from_dense,
+    band_mm,
+    band_probe,
+    band_scale,
+    band_to_blocks,
+    band_to_dense,
+    band_trace,
+    band_transpose,
+)
+from hierarchical_block_sparse_lib_tpu_torch.ops.kpack import (
+    KpackPlan,
+    kpack_spgemm,
+    plan_kpack,
+)
+from hierarchical_block_sparse_lib_tpu_torch.ops.leafpack import (
+    LeafpackPlan,
+    leafpack_spgemm,
+    plan_leafpack,
+)
+from hierarchical_block_sparse_lib_tpu_torch.ops.slab import spgemm_colslab
+from hierarchical_block_sparse_lib_tpu_torch.ops.spmm import spmm, spmv
 from hierarchical_block_sparse_lib_tpu_torch.models.purification import (
     CapacityProfile,
     PurificationStats,
@@ -134,6 +164,27 @@ __all__ = [
     "purify",
     "purify_scan",
     "sp2_step",
+    "BandMatrix",
+    "band_from_blocks",
+    "band_from_dense",
+    "band_to_dense",
+    "band_to_blocks",
+    "band_mm",
+    "band_add",
+    "band_scale",
+    "band_frob_squared",
+    "band_trace",
+    "band_transpose",
+    "band_probe",
+    "LeafpackPlan",
+    "plan_leafpack",
+    "leafpack_spgemm",
+    "KpackPlan",
+    "plan_kpack",
+    "kpack_spgemm",
+    "spgemm_colslab",
+    "spmm",
+    "spmv",
 ]
 
 __version__ = "0.1.0"

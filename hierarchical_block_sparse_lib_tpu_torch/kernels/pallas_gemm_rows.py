@@ -70,6 +70,11 @@ def _tau2(tau2):
     return None, float(np.float32(float(tau2)))
 
 
+# Pairs per batched product of the plain version: bounds its gathered
+# operands and products to 1.5 GB at b = 128.
+PLAIN_PAIR_CHUNK = 8192
+
+
 def rows_spgemm_reference(
     a_ids, a_data, b_ids, b_data, out_ids, nbr: int, nbrB: int, nbc: int,
     out_cap: int, b_row_max: int, c_row_max: int, precision: str = "highest",
@@ -78,9 +83,9 @@ def rows_spgemm_reference(
 ) -> torch.Tensor:
     """The plain PyTorch version of `rows_spgemm` (same arguments), on any
     device: expand the pairs the row tables give, drop those the options
-    skip, one batched `torch.bmm` at the requested tier, and an
-    `index_add_` into ``out_cap + 1`` slots whose last (pairs with no
-    output slot) is dropped."""
+    skip, batched `torch.bmm`s at the requested tier (`PLAIN_PAIR_CHUNK`
+    pairs each), and `index_add_`s into ``out_cap + 1`` slots whose last
+    (pairs with no output slot) is dropped."""
     del c_row_max
     b = a_data.shape[-1]
     dev = a_data.device
@@ -106,8 +111,12 @@ def rows_spgemm_reference(
     if out_cap == 0 or a_idx.numel() == 0:
         return out[:out_cap]
     slot = torch.where(keep, pair_slots(out_ids, c_id, out_cap), out_cap)
-    prod = tier_bmm(a_data[a_idx].to(torch.float32), b_data[b_idx].to(torch.float32), precision)
-    out.index_add_(0, slot, prod)
+    for p0 in range(0, a_idx.numel(), PLAIN_PAIR_CHUNK):
+        p = slice(p0, p0 + PLAIN_PAIR_CHUNK)
+        prod = tier_bmm(
+            a_data[a_idx[p]].to(torch.float32), b_data[b_idx[p]].to(torch.float32), precision
+        )
+        out.index_add_(0, slot[p], prod)
     return out[:out_cap]
 
 

@@ -163,6 +163,19 @@ class SymbolicPlan:
     mirror_ok: torch.Tensor | None = None
 
 
+def ids_mismatch(pairs) -> torch.Tensor:
+    """True when any (operand ids, ids a plan was built for) pair differs,
+    in shape or in value: a stale plan's `plan_mismatch` (0-dim bool on
+    the operands' device, no host sync)."""
+    mism = torch.zeros((), dtype=torch.bool, device=pairs[0][0].device)
+    for got, want in pairs:
+        if got.shape != want.shape:
+            mism = torch.ones_like(mism)
+        else:
+            mism = mism | torch.any(got != want)
+    return mism
+
+
 def _not_ported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
@@ -257,6 +270,18 @@ def resolve_backend(
     return "xla"
 
 
+def matmul_precision(precision: str, device: torch.device):
+    """The context of a plain f32 product (`torch.bmm`, `torch.matmul`) at
+    a precision tier, as the reference's XLA dots take it: TF32 off at
+    "highest" and "high" (full f32 products whatever the global flag
+    says), the global setting at "default"."""
+    if precision not in ("highest", "high", "default"):
+        raise ValueError(f"unknown precision {precision!r}")
+    if precision == "default":
+        return contextlib.nullcontext()
+    return pallas_gemm_fine._ieee_fp32_matmul(device)
+
+
 # Bound the gathered operands of the "xla" path: 2 * chunk * b^2 elements
 # per operand gather and product.
 _XLA_PAIR_CHUNK = 8192
@@ -274,11 +299,7 @@ def _xla_numeric_accumulate(
     out = torch.zeros((n_out + 1,) + tuple(out_shape[1:]), dtype=acc_dtype, device=dev)
     seg = seg.long().clamp(max=n_out)
     a_idx, b_idx = a_idx.long(), b_idx.long()
-    ctx = (
-        contextlib.nullcontext() if precision == "default"
-        else pallas_gemm_fine._ieee_fp32_matmul(dev)
-    )
-    with ctx:
+    with matmul_precision(precision, dev):
         for s0 in range(0, a_idx.shape[0], _XLA_PAIR_CHUNK):
             sl = slice(s0, s0 + _XLA_PAIR_CHUNK)
             prod = torch.bmm(
@@ -407,16 +428,9 @@ def spgemm(
             f"{b.n_rows}x{b.block_size}"
         )
     dev = a.device
+    # A stale plan gathers wrong pairs: compare the id structure it was
+    # built for (a capacity change counts as drift).
     plan_mismatch = torch.zeros((), dtype=torch.bool, device=dev)
-
-    def check(got, want):
-        # A stale plan gathers wrong pairs: compare the id structure it
-        # was built for (a capacity change counts as drift).
-        nonlocal plan_mismatch
-        if got.shape != want.shape:
-            plan_mismatch = torch.ones_like(plan_mismatch)
-        else:
-            plan_mismatch = plan_mismatch | torch.any(got != want)
 
     if plan is None:
         a_idx, b_idx, c_id, total, raw_total = spgemm_symbolic(a, b, pair_cap)
@@ -428,8 +442,7 @@ def spgemm(
         a_idx, b_idx, c_id = plan.a_idx, plan.b_idx, plan.c_id
         total, raw_total = plan.total, plan.raw_total
         if plan.a_ids is not None:
-            check(a.ids, plan.a_ids)
-            check(b.ids, plan.b_ids)
+            plan_mismatch = ids_mismatch(((a.ids, plan.a_ids), (b.ids, plan.b_ids)))
     gemm_cap = pair_cap if gemm_cap is None else min(gemm_cap, pair_cap)
     if gemm_cap < pair_cap:
         # Survivors sort before SENTINEL padding.
@@ -462,7 +475,7 @@ def spgemm(
             out_ids_pre = plan.out_ids
             seg = plan.seg[:gemm_cap]
             pos_acc, n_unique = plan.pos_acc, plan.n_unique
-            check(accum.ids, plan.acc_ids)
+            plan_mismatch = plan_mismatch | ids_mismatch(((accum.ids, plan.acc_ids),))
         else:
             acc_ids = torch.where(accum.valid_mask(), accum.ids, SENTINEL).to(torch.int32)
             out_ids_pre, seg, pos_acc, n_unique = basic.union_merge(

@@ -5,7 +5,7 @@ This is the port's own ctypes loader for ``csrc/libhbsm_host.so`` (built
 by ``make -C csrc`` at first use when a toolchain is present).  It does
 not import the JAX package's ``runtime/native.py``, whose package
 ``__init__`` imports jax.  The numpy fallbacks are the JAX package's,
-verbatim.
+verbatim; `symbolic_spgemm` has none, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -55,6 +55,10 @@ def _load_lib():
     for fn in (lib.hbsm_plan_spgemm, lib.hbsm_plan_spgemm_ex):
         fn.restype = None
         fn.argtypes = [i32p, i64, i32p, i64, i32, i32, i32, i64p]
+    lib.hbsm_symbolic_spgemm.restype = i64
+    lib.hbsm_symbolic_spgemm.argtypes = [
+        i32p, i64, i32p, i64, i32, i32, i64, i32p, i32p, i32p,
+    ]
     _LIB = lib
     return _LIB
 
@@ -157,3 +161,24 @@ def plan_spgemm_ex(a_ids, b_ids, a_nbc, b_nbr, b_nbc):
         )
         return tuple(int(v) for v in out)
     return plan_spgemm_ex_numpy(a_ids, b_ids, a_nbc, b_nbc)
+
+
+def symbolic_spgemm(a_ids, b_ids, a_nbc, b_nbc, pair_cap: int):
+    """Host-side full symbolic phase: (a_idx, b_idx, c_id, total) with the
+    first min(total, pair_cap) entries filled, sorted by c_id.  Unfilled
+    tail is SENTINEL.  C++ only (numpy callers use spgemm_symbolic on
+    the device instead)."""
+    lib = _load_lib()
+    a_ids = _c32(a_ids)
+    b_ids = _c32(b_ids)
+    a_idx = np.full(pair_cap, 0, np.int32)
+    b_idx = np.full(pair_cap, 0, np.int32)
+    c_id = np.full(pair_cap, _SENTINEL, np.int32)
+    if lib is None:
+        raise RuntimeError("native library unavailable; build csrc first")
+    total = lib.hbsm_symbolic_spgemm(
+        _ptr32(a_ids), a_ids.size, _ptr32(b_ids), b_ids.size,
+        np.int32(a_nbc), np.int32(b_nbc), np.int64(pair_cap),
+        _ptr32(a_idx), _ptr32(b_idx), _ptr32(c_id),
+    )
+    return a_idx, b_idx, c_id, int(total)

@@ -257,3 +257,27 @@ def rel_to_max(got, want) -> float:
     scale = np.abs(want).max()
     diff = np.abs(got - want).max()
     return float(diff / scale) if scale else float(diff)
+
+
+def assert_same_plan(port_plan, jax_plan):
+    """Every field of a host plan (a dataclass of arrays, ints and tuples
+    of either), in the port's and the JAX package's form, exactly equal."""
+    import dataclasses
+
+    def same(got, want, name):
+        if isinstance(want, (tuple, list)):
+            assert len(got) == len(want), name
+            for k, (g, w) in enumerate(zip(got, want)):
+                same(g, w, f"{name}[{k}]")
+        elif dataclasses.is_dataclass(want):
+            assert_same_plan(got, want)
+        elif isinstance(want, (int, float, np.integer)) and not isinstance(want, bool):
+            assert got == want, (name, got, want)
+        else:
+            g, w = np_(got), np.asarray(want)
+            assert g.shape == w.shape, (name, g.shape, w.shape)
+            np.testing.assert_array_equal(g, w, err_msg=name)
+
+    assert type(port_plan).__name__ == type(jax_plan).__name__
+    for f in dataclasses.fields(jax_plan):
+        same(getattr(port_plan, f.name), getattr(jax_plan, f.name), f.name)
