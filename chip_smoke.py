@@ -107,7 +107,26 @@ final line):
     per launch and both bounds, the peak memory; B1's band tier and
     leafpack against the f64 oracle and phase 12's product; kpack at B2
     against phase 4's planned fine product coarsened; spmm and spmv at
-    B2's A against f64.
+    B2's A against f64;
+16. (run after phase 15) the reference-shaped surface and the symmetric
+    product: B1 through HierarchicalBlockSparseMatrix (Params(16),
+    resize, assign_from_vectors, multiply) on the band tier, band-resident,
+    its counter equal to the block path's leaf-16 pairs, against f64, its
+    Frobenius norm read band-side, timed beside phase 12's planned product
+    on "pallas"; B2 through the class (two multiplies of phase 4's A: one
+    host plan, one fine_spgemm launch each, bitwise equal to
+    spgemm(backend="fine", plan=), 335 999 pairs each, against f64, timed
+    beside phase 4's planned fine_matmul), frob_block_trunc on a copy,
+    get_all_values (triplets and peak host memory) and save/load bitwise;
+    syrk at B3's input on the row-panel kernel's triu skip (pairs_upper
+    against pairs_raw, against matmul(A, A, transpose_b=True) and f64, the
+    kernel against its plain version, its device time per launch and both
+    bounds); symmetric SP2 at B3 (profile_purify, plan_purify and
+    purify_scan with symmetric=True, unplanned and planned with no host
+    sync): fewer pairs per step than phase 7's scan and at least half, an
+    exactly symmetric iterate within 1e-5 of the float64 path and of phase
+    7's iterate, launches per scan, frob_block_trunc at b = 128 on
+    norms_and_keep, and times in turns beside phase 7's planned scan.
 
 Phase 2 also prints each fine-kernel launch's k-chunk, shared memory,
 occupancy, registers and spills at B2's B row cap.  Prints the card line
@@ -1020,7 +1039,7 @@ def b3_kernels_and_times(A, prof, plans, card):
         us = per_call_us(dev, 10, "rows_spgemm_kernel")
         pairs = int(pk.total)
         rows_steps[k] = tile_bounds(2 * 128**3 * pairs,
-                                    xk.data.numel() * 4 + prof.out_cap * 128 * 128 * 4, us)
+                                    stored_bytes(xk) + prof.out_cap * 128 * 128 * 4, us)
         b = rows_steps[k]
         print(f"[time]   rows_spgemm step {k} ({pairs} pairs): call {call:.4f} ms, kernel "
               f"{us:.1f} us per launch; bounds FP32 {b['bound_fp32_ms']:.4f} ms "
@@ -1035,7 +1054,7 @@ def b3_kernels_and_times(A, prof, plans, card):
           f"{bmm_ms:.4f} ms (the products alone, without their sum into slots)")
     entries = {
         "rows_spgemm": dict(max_abs_err=rows_err, ms=t["rows"][0], plain_ms=t["rows"][1],
-                            bound=bound(2 * 128**3 * pairs2, x2.data.numel() * 4
+                            bound=bound(2 * 128**3 * pairs2, stored_bytes(x2)
                                         + prof.out_cap * 128 * 128 * 4, "tf32x3"),
                             library_ms=None, **rows_steps[2]),
         "norms_and_keep": dict(
@@ -1152,6 +1171,12 @@ def tile_bounds(flops, nbytes, device_us, kind="tf32x3"):
                 route_bound_by=route[1], device_ms=dev_ms,
                 share_fp32=fp32[0] / dev_ms if dev_ms else None,
                 share_route=route[0] / dev_ms if dev_ms else None)
+
+
+def stored_bytes(M) -> int:
+    """Bytes of M's stored blocks (its nnz, not its capacity): what a
+    kernel that reads each stored block once must move."""
+    return int(M.nnz) * M.block_size * M.block_size * M.data.element_size()
 
 
 def pct(share):
@@ -1808,6 +1833,422 @@ def occupancy_phase(card, b1, b2):
     return rows, small.get("groups_spgemm", 0)
 
 
+def host_peak_bytes(fn, period_s=5e-4):
+    """(fn(), bytes): the process's peak resident host memory during fn()
+    above its resident memory before, from /proc/self/status's VmRSS
+    sampled every `period_s` by a thread (the interpreter's switch
+    interval is cut to match, so the sampler gets its turns)."""
+    import threading
+
+    def rss():
+        with open("/proc/self/status") as f:
+            return next(int(line.split()[1]) * 1024 for line in f if line.startswith("VmRSS:"))
+
+    before = rss()
+    peak = [before]
+    done = threading.Event()
+
+    def sample():
+        while not done.is_set():
+            peak[0] = max(peak[0], rss())
+            time.sleep(period_s)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(period_s)
+    thread = threading.Thread(target=sample, daemon=True)
+    thread.start()
+    try:
+        out = fn()
+        peak[0] = max(peak[0], rss())
+    finally:
+        done.set()
+        thread.join()
+        sys.setswitchinterval(old)
+    return out, peak[0] - before
+
+
+def class_b1(card, b1):
+    """Phase 16, B1 through the class (bench.py:711-713): Params(16),
+    resize(4096), assign_from_vectors(banded_coo(4096, 64, seed=0)) and
+    multiply(A, False, A, False) on the band tier, band-resident, against
+    the f64 product; frob band-side; timed beside phase 12's planned
+    product on "pallas"."""
+    import torch
+
+    import hierarchical_block_sparse_lib_tpu_torch as hbsm
+    from hierarchical_block_sparse_lib_tpu_torch.ops.band import band_pair_count
+    from hierarchical_block_sparse_lib_tpu_torch.utils import generators as gen
+
+    HB = hbsm.HierarchicalBlockSparseMatrix
+    n, bw = 4096, 64
+    torch.cuda.synchronize()
+    reset_counts()
+    a = HB(hbsm.Params(16))
+    a.resize(n)
+    a.assign_from_vectors(*gen.banded_coo(n, bw, seed=0))
+    c = HB.multiply(a, False, a, False)
+    frob = c.get_frob_squared()
+    torch.cuda.synchronize()
+    launched({}, "B1 through the class (the band tier: torch.bmm, no kernel of the port)")
+    if c._band is None or c._m is not None or a._m.device.type != torch.device(DEVICE).type:
+        raise AssertionError("B1 through the class is not band-resident on the card")
+    d16 = hbsm.to_dense(b1["a16"]).double()
+    exact = d16 @ d16
+    del d16
+    err = rel_err(hbsm.band_to_dense(c._band).double(), exact)
+    frob_err = abs(frob - float((exact * exact).sum())) / float((exact * exact).sum())
+    del exact
+    pairs = c.no_of_block_multiplies
+    wb = (a._band_w + 1 + 15) // 16 - 1
+    print(f"[class] B1: {a.get_nnz_blocks()} blocks of 16, band w={a._band_w} (block halfwidth "
+          f"{wb}); multiply band-resident (block form never built: {c._m is None}); counter "
+          f"{pairs} (leaf-16 pairs {b1['fine_pairs']}); vs f64 rel err {err:.3e}; "
+          f"get_frob_squared band-side rel err {frob_err:.3e}")
+    if pairs != b1["fine_pairs"] or pairs != band_pair_count(n // 16, wb):
+        raise AssertionError(f"B1 class counter {pairs} vs the block path's {b1['fine_pairs']}")
+    if max(err, frob_err) > 1e-5:
+        raise AssertionError(f"B1 class rel errs {err:.3e}, {frob_err:.3e}")
+    times = in_turns({"class multiply (band tier)": lambda: HB.multiply(a, False, a, False),
+                      "planned spgemm on 'pallas'": b1["pallas"]})
+    print(f"[time] {card}: B1, CUDA events, median of 7 after 2 warm-up calls, in order then "
+          f"reversed")
+    for name, (t1, t2) in times.items():
+        print(f"[time]   {name:27s} {t1:.4f} / {t2:.4f} ms")
+
+
+def class_b2(card, b2, tmp_dir):
+    """Phase 16, B2 through the class (BASELINE.json:8): two multiplies of
+    phase 4's A through from_block_matrix (one host plan, one fine_spgemm
+    launch each, bitwise equal to spgemm(backend="fine", plan=), against
+    the f64 product), its time beside phase 4's planned fine_matmul;
+    frob_block_trunc on a copy; get_all_values (triplets, peak host
+    memory); save/load bitwise.  Returns fine_spgemm's launches."""
+    import os
+
+    import torch
+
+    import hierarchical_block_sparse_lib_tpu_torch as hbsm
+    import hierarchical_block_sparse_lib_tpu_torch.api as api
+
+    HB = hbsm.HierarchicalBlockSparseMatrix
+    A, Af, plan, pc, oc, caps = b2
+    HB._plan_cache.clear()
+    planner = api.plan_spgemm_ex
+    calls = []
+
+    def counting(*args):
+        calls.append(1)
+        return planner(*args)
+
+    api.plan_spgemm_ex = counting
+    try:
+        m = HB.from_block_matrix(A)
+        torch.cuda.synchronize()
+        reset_counts()
+        c1 = HB.multiply(m, False, m, False)
+        n1 = counts(("fine_spgemm",))["fine_spgemm"]
+        c2 = HB.multiply(m, False, m, False)
+        torch.cuda.synchronize()
+        launches = counts(("fine_spgemm",))["fine_spgemm"]
+        launched({"fine_spgemm": 2}, "two B2 multiplies through the class")
+    finally:
+        api.plan_spgemm_ex = planner
+    (cplan, cpc, coc, crc), = HB._plan_cache.values()
+    cm, info = hbsm.spgemm(A, A, cpc, coc, plan=cplan, row_caps=crc, backend="fine")
+    same = all(torch.equal(x.block_matrix.ids, cm.ids) and torch.equal(x.block_matrix.data, cm.data)
+               for x in (c1, c2))
+    counters = (c1.no_of_block_multiplies, c2.no_of_block_multiplies)
+    print(f"[class] B2: host planner calls {len(calls)} for two multiplies; fine_spgemm "
+          f"launches {n1} then {launches - n1}; counters {counters}; bitwise equal to "
+          f"spgemm(backend='fine', plan=): {same}")
+    if len(calls) != 1 or n1 != 1 or not same or counters != (pc, pc) or flags_set(info):
+        raise AssertionError(f"B2 class: planner {len(calls)}, launches {n1}/{launches}, "
+                             f"bitwise {same}, counters {counters} vs {pc}, {flags_set(info)}")
+    dA = hbsm.to_dense(A).double()
+    exact = dA @ dA
+    del dA
+    err = rel_err(hbsm.to_dense(c1.block_matrix).double(), exact)
+    del exact
+    print(f"[class] B2 product vs the f64 product: rel err {err:.3e}")
+    if err > 1e-5:
+        raise AssertionError(f"B2 class rel err {err:.3e} > 1e-5")
+    times = in_turns({
+        "class multiply": lambda: HB.multiply(m, False, m, False),
+        "spgemm(backend='fine', plan=)": lambda: hbsm.spgemm(
+            A, A, cpc, coc, plan=cplan, row_caps=crc, backend="fine"),
+        "planned fine_matmul (phase 4)": lambda: hbsm.fine_matmul(Af, Af, pc, oc, caps,
+                                                                  plan=plan),
+    })
+    print(f"[time] {card}: B2, CUDA events, median of 7 after 2 warm-up calls, in order then "
+          f"reversed")
+    for name, (t1, t2) in times.items():
+        print(f"[time]   {name:30s} {t1:.3f} / {t2:.3f} ms")
+
+    # frob_block_trunc on a copy: the copy drops blocks, the original keeps
+    # its own (at leaf 32 the norms are a torch reduction, no kernel).
+    cb = c1.block_matrix
+    tau = midpoint_tau(hbsm.block_frob_squared(cb)[:int(cb.nnz)].sqrt().cpu().numpy())
+    before = c1.get_nnz_blocks()
+    cut = c1.copy()
+    reset_counts()
+    cut.frob_block_trunc(tau)
+    torch.cuda.synchronize()
+    want = hbsm.truncate(c1.block_matrix, tau)
+    if not (torch.equal(cut.block_matrix.ids, want.ids)
+            and torch.equal(cut.block_matrix.data, want.data)) or c1.get_nnz_blocks() != before:
+        raise AssertionError("B2 frob_block_trunc on a copy differs from truncate or leaks")
+    print(f"[class] B2 frob_block_trunc(tau={tau:.4g}) on a copy: {before} -> "
+          f"{cut.get_nnz_blocks()} blocks, equal to truncate; the original keeps {before}; "
+          f"launches {counts(('norms_and_keep',))} (leaf 32: torch reduction)")
+
+    t0 = time.perf_counter()
+    (rows, cols, vals), peak = host_peak_bytes(m.get_all_values)
+    secs = time.perf_counter() - t0
+    n_trip = rows.size
+    frob = float(hbsm.frob_squared(A))
+    v64 = float(np.square(vals, dtype=np.float64).sum())
+    want_trip = int(torch.count_nonzero(A.data[:int(A.nnz)]))
+    idx = np.random.default_rng(0).integers(0, n_trip, 1000)
+    got_vals = m.get_values(rows[idx], cols[idx])
+    result_bytes = rows.nbytes + cols.nbytes + vals.nbytes
+    print(f"[class] B2 get_all_values: {n_trip} triplets ({result_bytes / 2**20:.1f} MiB) in "
+          f"{secs:.2f} s, chunks of 2048 blocks ({2048 * 32 * 32 * 12 / 2**20:.1f} MiB); peak "
+          f"host memory above the start {peak / 2**20:.1f} MiB (VmRSS sampled every 0.5 ms)")
+    if n_trip != want_trip or abs(v64 - frob) > 1e-5 * frob or not np.array_equal(got_vals,
+                                                                                  vals[idx]):
+        raise AssertionError(f"B2 get_all_values: {n_trip} triplets vs {want_trip}, sum of "
+                             f"squares {v64} vs {frob}")
+    del rows, cols, vals
+
+    path = os.path.join(tmp_dir, "b2.npz")
+    hbsm.save(path, A)
+    back = hbsm.load(path)
+    size = os.path.getsize(path)
+    os.remove(path)
+    if not (back.device.type == torch.device(DEVICE).type and torch.equal(back.ids[:int(A.nnz)], A.ids[:int(A.nnz)])
+            and torch.equal(back.data[:int(A.nnz)], A.data[:int(A.nnz)])
+            and int(back.nnz) == int(A.nnz)):
+        raise AssertionError("B2 save/load is not bitwise")
+    print(f"[class] B2 save/load on the card: bitwise, {size / 2**20:.1f} MiB file")
+    return 2
+
+
+def syrk_b3(card, A):
+    """Phase 16, syrk at B3's input (b=128): plan_syrk, syrk on "rows"
+    (rows_spgemm with triu) against matmul(A, A, transpose_b=True) and the
+    f64 product; the kernel against its plain version at that shape, its
+    device time per launch and both bounds.  Returns its launches."""
+    import torch
+
+    import hierarchical_block_sparse_lib_tpu_torch as hbsm
+    from hierarchical_block_sparse_lib_tpu_torch.kernels import pallas_gemm_rows as rows
+    from hierarchical_block_sparse_lib_tpu_torch.ops.spgemm import plan_spgemm
+
+    plan = hbsm.plan_syrk(A)
+    torch.cuda.synchronize()
+    reset_counts()
+    C, info = hbsm.syrk(A)
+    torch.cuda.synchronize()
+    got = launched({"rows_spgemm": 1}, "syrk at B3")
+    full, _ = plan_spgemm(A, hbsm.transpose(A))
+    print(f"[syrk] B3 input: pairs_upper {plan.pairs_upper} of pairs_raw {plan.pairs_raw} "
+          f"({plan.pairs_upper / plan.pairs_raw:.3f}); out {plan.out_upper} upper, "
+          f"{plan.out_full} mirrored; launches {got}")
+    if (int(info.n_block_pairs), plan.pairs_raw) != (plan.pairs_upper, full) or flags_set(info):
+        raise AssertionError(f"syrk counters {int(info.n_block_pairs)} / {plan.pairs_raw}, "
+                             f"flags {flags_set(info)}")
+    M, _ = hbsm.matmul(A, A, transpose_b=True)
+    d = hbsm.to_dense(A).double()
+    exact = d @ d.T
+    del d
+    dense = hbsm.to_dense(C)
+    err_m, err_x = rel_err(dense, hbsm.to_dense(M)), rel_err(dense.double(), exact)
+    del exact, dense
+    print(f"[syrk] vs matmul(A, A, transpose_b=True) rel err {err_m:.3e}, vs f64 {err_x:.3e}")
+    if max(err_m, err_x) > 1e-5:
+        raise AssertionError(f"syrk rel errs {err_m:.3e}, {err_x:.3e}")
+    at = hbsm.transpose(A)
+    cu, _ = hbsm.syrk(A, full=False)
+    rargs = (A.ids, A.data, at.ids, at.data, cu.ids, A.nb_rows, at.nb_rows, at.nb_cols,
+             cu.cap, plan.max_b_row, plan.max_c_row)
+    # Host check of the skip's predicate: the pairs of the kernel's row
+    # tables whose column is >= the A block's row, against the symbolic
+    # filter's count.
+    from hierarchical_block_sparse_lib_tpu_torch.kernels import pallas_gemm_fine as pf
+
+    _, a_col, b_row_start, b_col, _, _ = pf.build_tables(
+        A.ids, at.ids, cu.ids, A.nb_rows, at.nb_rows, at.nb_cols)
+    a_idx, b_idx = pf.expand_pairs(A.ids, a_col, b_row_start, plan.max_b_row)
+    kept = int((b_col[b_idx].long() >= A.ids[a_idx].long() // A.nb_cols).sum())
+    print(f"[syrk] host check of the triu predicate: {kept} of {a_idx.numel()} pairs; the "
+          f"symbolic filter {int(info.n_block_pairs)}")
+    if (kept, a_idx.numel()) != (plan.pairs_upper, plan.pairs_raw):
+        raise AssertionError(f"triu predicate keeps {kept} pairs, the symbolic filter "
+                             f"{plan.pairs_upper}")
+    # The kernel's own skip: on the mirrored output (both triangles) a
+    # triu launch leaves every strictly lower slot zero and writes the
+    # upper slots bitwise as a launch without the skip does.  A slot's
+    # pairs share its (row, column), so this holds the skip pair for pair.
+    full_args = rargs[:4] + (C.ids,) + rargs[5:8] + (C.cap,) + rargs[9:]
+    k_up = rows.rows_spgemm(*full_args, triu=True)
+    k_all = rows.rows_spgemm(*full_args, triu=False)
+    valid = C.ids != hbsm.SENTINEL
+    lower = valid & (C.ids // C.nb_cols > C.ids % C.nb_cols)
+    upper = valid & ~lower
+    n_low = int(lower.sum())
+    low_zero = bool((k_up[lower] == 0).all())
+    low_hit = int((k_all[lower] != 0).flatten(1).any(1).sum())
+    up_equal = torch.equal(k_up[upper], k_all[upper])
+    print(f"[syrk] the kernel's triu skip on the {int(valid.sum())} mirrored slots: the "
+          f"{n_low} strictly lower ones all zero {low_zero} ({low_hit} nonzero without "
+          f"the skip); the {int(upper.sum())} upper ones bitwise as without it {up_equal}")
+    if not (low_zero and up_equal and low_hit == n_low == plan.out_full - plan.out_upper):
+        raise AssertionError(f"triu skip: lower zero {low_zero}, upper equal {up_equal}, "
+                             f"lower slots {n_low} ({low_hit} hit without the skip)")
+    del k_up, k_all
+    k = rows.rows_spgemm(*rargs, triu=True)
+    p = rows.rows_spgemm_reference(*rargs, triu=True)
+    rel = rel_err(k, p)
+    print(f"[syrk] rows_spgemm(triu=True) vs plain at {plan.pairs_upper} pairs, out_cap "
+          f"{cu.cap}: max abs err {float((k - p).abs().max()):.3e}, rel {rel:.3e}")
+    if rel > ROWS_TOL:
+        raise AssertionError(f"syrk rows_spgemm(triu) rel err {rel:.3e}")
+    k_ms, p_ms, four = alternate(lambda: rows.rows_spgemm(*rargs, triu=True),
+                                 lambda: rows.rows_spgemm_reference(*rargs, triu=True))
+    dev = device_profile("rows_spgemm(triu=True) at B3's syrk", lambda: rows.rows_spgemm(
+        *rargs, triu=True), 10, card, top=3)
+    # Bytes: A's and A^T's stored blocks read once (not their capacity),
+    # every output slot written once.
+    bnd = tile_bounds(2 * 128**3 * plan.pairs_upper,
+                      stored_bytes(A) + stored_bytes(at) + cu.cap * 128 * 128 * 4,
+                      per_call_us(dev, 10, "rows_spgemm_kernel"))
+    syrk_ms = cuda_time_ms(lambda: hbsm.syrk(A))[0]
+    mm_ms = cuda_time_ms(lambda: hbsm.matmul(A, A, transpose_b=True))[0]
+    print(f"[time] {card}: syrk at B3, CUDA events, median of 7 after 2 warm-up calls")
+    print(f"[time]   rows_spgemm(triu) kernel {four[0]:.4f} / {four[1]:.4f} ms   plain "
+          f"{four[2]:.4f} / {four[3]:.4f} ms; kernel "
+          + ("not measured" if bnd["device_ms"] is None else f"{1e3 * bnd['device_ms']:.1f} us")
+          + f" per launch: bounds FP32 {bnd['bound_fp32_ms']:.4f} ms ({pct(bnd['share_fp32'])}), "
+          f"3xTF32 {bnd['bound_route_ms']:.4f} ms ({pct(bnd['share_route'])})")
+    print(f"[time]   syrk call {syrk_ms:.4f} ms; matmul(A, A, transpose_b=True) {mm_ms:.4f} ms")
+    return got["rows_spgemm"]
+
+
+def symmetric_b3(card, A, prof, plans, scan):
+    """Phase 16, symmetric SP2 at B3 (5 steps, tau = 1e-6):
+    profile_purify(symmetric=True), plan_purify(symmetric=True),
+    purify_scan(symmetric=True) unplanned and planned (no host sync),
+    against phase 7's generic scan (pairs per step), the float64 path and
+    phase 7's iterate; exactly symmetric; launches and times in turns.
+    Returns the launches of rows_spgemm and norms_and_keep."""
+    import dataclasses
+
+    import torch
+
+    import hierarchical_block_sparse_lib_tpu_torch as hbsm
+
+    n, steps, tau = A.n_rows, 5, 1e-6
+    xg, sg = scan
+    torch.cuda.synchronize()
+    reset_counts()
+    prof_s = hbsm.profile_purify(A, steps, tau, target_trace=n / 2, symmetric=True)
+    # The planned symmetric step runs on the generic union: caps that
+    # cover both trajectories.
+    caps = {k: max(getattr(prof, k), getattr(prof_s, k)) for k in ("pair_cap", "out_cap", "cap")}
+    caps["row_caps"] = tuple(max(x, y) for x, y in zip(prof.row_caps, prof_s.row_caps))
+    prof_run = dataclasses.replace(prof, **caps)
+    plans_s = hbsm.plan_purify(A, steps, tau, prof_run, target_trace=n / 2, symmetric=True)
+    kw = dict(target_trace=n / 2, symmetric=True, **prof_run.kwargs())
+    c0 = counts()
+    xu, su = hbsm.purify_scan(A, steps, tau, **kw)
+    c1 = counts()
+    with no_host_sync():
+        xp, sp = hbsm.purify_scan(A, steps, tau, plans=plans_s, **kw)
+    c2 = counts()
+    torch.cuda.synchronize()
+    print(f"[sym] B3 profile_purify(symmetric=True): pairs {prof_s.per_step_pairs}, union "
+          f"{prof_s.per_step_out}, kept {prof_s.per_step_kept}; run caps {caps}")
+    for name, before, after in (("unplanned", c0, c1), ("planned", c1, c2)):
+        per = {k: after[k] - before[k] for k in ("rows_spgemm", "norms_and_keep")}
+        print(f"[sym] {name} symmetric scan launches {per}")
+        if per != {"rows_spgemm": steps, "norms_and_keep": steps}:
+            raise AssertionError(f"{name} symmetric scan launches {per}")
+    pg = sg.n_block_pairs
+    for name, st in (("unplanned", su), ("planned", sp)):
+        bad = {f: bool(getattr(st, f).any()) for f in (
+            "pair_overflow", "out_overflow", "repack_overflow", "plan_mismatch")}
+        ps = st.n_block_pairs
+        print(f"[sym] {name}: pairs/step {ps.tolist()} vs generic {pg.tolist()}; kept "
+              f"{st.nnz_blocks.tolist()}")
+        if any(bad.values()) or not bool(((ps < pg) & (ps >= pg // 2)).all()):
+            raise AssertionError(f"symmetric {name} scan: flags {bad}, pairs {ps.tolist()}")
+    a64 = A.with_data(A.data.double())
+    x64, _ = hbsm.purify_scan(a64, steps, tau, backend="xla", **kw)
+    d64 = hbsm.to_dense(x64)
+    dg = hbsm.to_dense(xg).double()
+    for name, x in (("unplanned", xu), ("planned", xp)):
+        d = hbsm.to_dense(x)
+        if not torch.equal(d, d.T):
+            raise AssertionError(f"symmetric {name} iterate is not exactly symmetric")
+        e64, eg = rel_err(d.double(), d64), rel_err(d.double(), dg)
+        print(f"[sym] {name} iterate: exactly symmetric; vs the float64 symmetric path rel err "
+              f"{e64:.3e}, vs phase 7's iterate {eg:.3e}")
+        if max(e64, eg) > 1e-5:
+            raise AssertionError(f"symmetric {name} rel errs {e64:.3e}, {eg:.3e}")
+    print(f"[sym] planned vs unplanned: ids equal {torch.equal(xp.ids, xu.ids)}, bitwise "
+          f"{torch.equal(xp.data, xu.data)}, rel diff "
+          f"{rel_err(hbsm.to_dense(xp), hbsm.to_dense(xu)):.3e}")
+    # frob_block_trunc through the class at b = 128: one norms_and_keep.
+    m = hbsm.HierarchicalBlockSparseMatrix.from_block_matrix(xp)
+    cut = m.copy()
+    cut.frob_block_trunc(1e-3)
+    torch.cuda.synchronize()
+    total = counts()
+    if total["norms_and_keep"] - c2["norms_and_keep"] != 1:
+        raise AssertionError("frob_block_trunc at b=128 did not run norms_and_keep once")
+    want = hbsm.truncate(xp, 1e-3)
+    if not torch.equal(cut.block_matrix.data, want.data) or m.get_nnz_blocks() != int(xp.nnz):
+        raise AssertionError("frob_block_trunc at b=128 differs from truncate or leaks")
+    print(f"[class] B3 symmetric iterate, frob_block_trunc(1e-3) on a copy: {int(xp.nnz)} -> "
+          f"{cut.get_nnz_blocks()} blocks (1 norms_and_keep launch), equal to truncate")
+
+    gkw = dict(target_trace=n / 2, **prof.kwargs())
+    times = in_turns({
+        "generic planned (phase 7)": lambda: hbsm.purify_scan(A, steps, tau, plans=plans, **gkw),
+        "symmetric unplanned": lambda: hbsm.purify_scan(A, steps, tau, **kw),
+        "symmetric planned": lambda: hbsm.purify_scan(A, steps, tau, plans=plans_s, **kw),
+    })
+    print(f"[time] {card}: B3 5-step scans, CUDA events, median of 7 after 2 warm-up calls, "
+          f"in order then reversed")
+    for name, (t1, t2) in times.items():
+        print(f"[time]   {name:26s} {t1:.3f} / {t2:.3f} ms")
+    device_profile("planned symmetric B3 scan", lambda: hbsm.purify_scan(
+        A, steps, tau, plans=plans_s, **kw), 10, card, unit="scan", top=8)
+    return {k: total[k] for k in ("rows_spgemm", "norms_and_keep")}
+
+
+def surface_phase(card, b1, b2, b3):
+    """Phase 16: the class at B1 and B2, syrk and symmetric SP2 at B3.
+    Returns the launches of the kernels on its paths."""
+    import os
+
+    import torch
+
+    t0 = time.perf_counter()
+    tmp_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "phase16")
+    os.makedirs(tmp_dir, exist_ok=True)
+    class_b1(card, b1)
+    fine = class_b2(card, b2, tmp_dir)
+    torch.cuda.empty_cache()
+    A3, prof, plans, scan = b3
+    syrk_rows = syrk_b3(card, A3)
+    sym = symmetric_b3(card, A3, prof, plans, scan)
+    out = {"fine_spgemm": fine, "rows_spgemm": syrk_rows + sym["rows_spgemm"],
+           "norms_and_keep": sym["norms_and_keep"]}
+    print(f"[phase16] {time.perf_counter() - t0:.1f} s; launches {out}")
+    return out
+
+
 def small_micro(card):
     """Phase 14: the four micro kernels vs their plain versions at small
     shapes: micro in every mode and tier at reps 0, 1 and 5, at shapes
@@ -2203,6 +2644,7 @@ def main() -> int:
 
     # Phase 11: B3's input through purify, on the pair-stream kernel.
     purify_launches = purify_b3(A3, prof, b3_scan)
+    b3 = (A3, prof, plans, b3_scan)  # phase 16's syrk and symmetric scans (0.1 GB)
     del A3, prof, plans, b3_scan
     torch.cuda.empty_cache()
 
@@ -2215,7 +2657,10 @@ def main() -> int:
     # Phase 15: the occupancy tiers and B4 (B3's and B2-tile128's tensors
     # are freed by now).
     b4_rows, b4_groups = occupancy_phase(card, b1, b2)
-    del b1, b2
+
+    # Phase 16: the class at B1 and B2, syrk and symmetric SP2 at B3.
+    p16 = surface_phase(card, b1, b2, b3)
+    del b1, b2, b3
     torch.cuda.empty_cache()
 
     # Phase 14: the micro kernels at small shapes, then the measurement
@@ -2236,9 +2681,14 @@ def main() -> int:
         gather_gemm_accumulate=v1_launches, **micro_launches,
     )
     launches["rows_spgemm"] += b4_rows
+    for name, n16 in p16.items():
+        launches[name] += n16
     print(f"[launches] gather_gemm_accumulate_stream: {b2t_launches} on B2-tile128 + "
           f"{purify_launches} in purify on B3; rows_spgemm: {b3_launches['rows_spgemm']} on "
-          f"B3 + {b4_rows} on B4 (phase 15)")
+          f"B3 + {b4_rows} on B4 (phase 15) + {p16['rows_spgemm']} with triu (phase 16: syrk "
+          f"and the symmetric B3 path); norms_and_keep: {b3_launches['norms_and_keep']} on B3 "
+          f"+ {p16['norms_and_keep']} (phase 16); fine_spgemm: {fine_launches} on B2 + "
+          f"{p16['fine_spgemm']} through the class (phase 16)")
     print(f"[time] script wall {time.perf_counter() - script_t0:.1f} s")
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel never launched on its path: {launches}")

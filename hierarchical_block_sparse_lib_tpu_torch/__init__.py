@@ -20,26 +20,39 @@ the eager ``matmul`` with ``plan_groups`` on the row-group kernel of
 products are batched `torch.bmm`: the column-slab tier ``spgemm_colslab``
 (each slab on the row-panel kernel), the dense band (``BandMatrix``,
 ``band_*``), leaf-strip packing (``plan_leafpack``/``leafpack_spgemm``),
-contraction packing (``plan_kpack``/``kpack_spgemm``) and ``spmm``/``spmv``.
+contraction packing (``plan_kpack``/``kpack_spgemm``) and ``spmm``/``spmv``;
+the reference-shaped surface: the class ``HierarchicalBlockSparseMatrix``
+with ``Params``, COO export (``to_coo``, ``to_coo_chunks``,
+``get_values``) and npz files (``save``/``load``, the JAX package's
+format); and the symmetric product: ``syrk``/``plan_syrk`` (upper-triangle
+products on the row-panel kernel's ``triu`` skip), ``triu``/``tril``/
+``filter_blocks`` and symmetric SP2 (``symmetric=True``).
 Constructors build on the CUDA card unless given another ``device``.
 """
 
 from hierarchical_block_sparse_lib_tpu_torch.core.block_matrix import (
     SENTINEL,
     BlockMatrix,
+    Params,
 )
 from hierarchical_block_sparse_lib_tpu_torch.core.assembly import (
     empty,
     eye,
     from_coo,
     from_dense,
+    get_values,
+    to_coo,
+    to_coo_chunks,
     to_dense,
 )
 from hierarchical_block_sparse_lib_tpu_torch.ops.basic import (
     add,
     add_with_info,
+    filter_blocks,
     scale,
     transpose,
+    tril,
+    triu,
 )
 from hierarchical_block_sparse_lib_tpu_torch.ops.norms import (
     block_frob_squared,
@@ -51,10 +64,11 @@ from hierarchical_block_sparse_lib_tpu_torch.ops.spgemm import (
     MultiplyInfo,
     SymbolicPlan,
     make_plan,
+    plan_syrk,
     spgemm,
     spgemm_symbolic,
 )
-from hierarchical_block_sparse_lib_tpu_torch.ops.matmul import matmul
+from hierarchical_block_sparse_lib_tpu_torch.ops.matmul import matmul, syrk
 from hierarchical_block_sparse_lib_tpu_torch.kernels.pallas_gemm_groups import (
     GroupPlan,
     plan_groups,
@@ -115,19 +129,28 @@ from hierarchical_block_sparse_lib_tpu_torch.models.purification import (
     purify_scan,
     sp2_step,
 )
+from hierarchical_block_sparse_lib_tpu_torch.utils.serialization import load, save
+from hierarchical_block_sparse_lib_tpu_torch.api import HierarchicalBlockSparseMatrix
 
 __all__ = [
     "BlockMatrix",
+    "Params",
     "SENTINEL",
     "from_coo",
     "from_dense",
     "to_dense",
+    "to_coo",
+    "to_coo_chunks",
+    "get_values",
     "empty",
     "eye",
     "add",
     "add_with_info",
     "scale",
     "transpose",
+    "filter_blocks",
+    "triu",
+    "tril",
     "frob_squared",
     "block_frob_squared",
     "trace",
@@ -138,6 +161,8 @@ __all__ = [
     "SymbolicPlan",
     "MultiplyInfo",
     "matmul",
+    "syrk",
+    "plan_syrk",
     "plan_groups",
     "GroupPlan",
     "repack",
@@ -185,6 +210,9 @@ __all__ = [
     "spgemm_colslab",
     "spmm",
     "spmv",
+    "save",
+    "load",
+    "HierarchicalBlockSparseMatrix",
 ]
 
 __version__ = "0.1.0"

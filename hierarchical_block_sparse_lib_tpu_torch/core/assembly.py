@@ -1,6 +1,7 @@
 """Element assembly / extraction (port of ``core/assembly.py``):
 one sort-by-block-id plus a segment scatter instead of a per-element
-quadtree descent."""
+quadtree descent; COO export (`to_coo`, the streamed `to_coo_chunks`)
+and random element reads (`get_values`) in the reference's order."""
 
 from __future__ import annotations
 
@@ -75,7 +76,8 @@ def from_coo(
     device=None,
 ) -> BlockMatrix:
     """Build from COO triplets (duplicate entries sum), on the card unless
-    `device` names another.  `cap` defaults to the exact number of
+    `device` names another.  `vals` is anything numpy can read, or a
+    tensor (bfloat16 included).  `cap` defaults to the exact number of
     touched blocks."""
     n_cols = n_rows if n_cols is None else n_cols
     check_geometry(n_rows, n_cols, block_size)
@@ -84,7 +86,7 @@ def from_coo(
     nbc = -(-n_cols // b)
     rows = torch.as_tensor(np.asarray(rows), device=device).to(torch.int64)
     cols = torch.as_tensor(np.asarray(cols), device=device).to(torch.int64)
-    vals = torch.as_tensor(np.asarray(vals), device=device)
+    vals = torch.as_tensor(vals if isinstance(vals, torch.Tensor) else np.asarray(vals), device=device)
     bid = (rows // b) * nbc + cols // b
     if cap is None:
         cap = max(int(torch.unique(bid).numel()), 1)
@@ -142,3 +144,64 @@ def to_dense(a: BlockMatrix) -> torch.Tensor:
     grid.index_put_((brow, bcol), a.data, accumulate=True)
     full = grid[:nbr].permute(0, 2, 1, 3).reshape(nbr * b, nbc * b)
     return full[: a.n_rows, : a.n_cols]
+
+
+def _coo_of(a: BlockMatrix, ids: torch.Tensor, slot_ok: torch.Tensor):
+    """(rows, cols, mask) of every element of the blocks `ids` [m], each
+    [m, b, b] int32/bool: `mask` marks elements of blocks with `slot_ok`
+    inside the logical bounds; masked-out positions read row = col = 0."""
+    b = a.block_size
+    ids = ids.to(torch.int64)
+    r_in = torch.arange(b, device=ids.device)
+    rows = (ids // a.nb_cols)[:, None, None] * b + r_in[None, :, None]
+    cols = (ids % a.nb_cols)[:, None, None] * b + r_in[None, None, :]
+    mask = (slot_ok & (ids != SENTINEL))[:, None, None] & (rows < a.n_rows) & (cols < a.n_cols)
+    rows = torch.where(mask, rows, 0).to(torch.int32)
+    cols = torch.where(mask, cols, 0).to(torch.int32)
+    return rows, cols, mask
+
+
+def to_coo(a: BlockMatrix):
+    """All stored elements as (rows, cols, vals, mask), each of length
+    cap*b*b, in slot order and row-major within a block (the reference's
+    order); `mask` marks elements of valid blocks inside the logical
+    bounds."""
+    ok = torch.ones(a.cap, dtype=torch.bool, device=a.device)
+    rows, cols, mask = _coo_of(a, a.ids, ok)
+    return rows.reshape(-1), cols.reshape(-1), a.data.reshape(-1), mask.reshape(-1)
+
+
+def to_coo_chunks(a: BlockMatrix, chunk_blocks: int = 2048, drop_zeros=False):
+    """Stream stored elements to the host as (rows, cols, vals) numpy
+    chunks of at most `chunk_blocks` blocks each, in `to_coo`'s order.
+
+    Peak host memory is one chunk instead of four cap*b*b arrays.  Chunks
+    arrive mask-filtered (padding slots and out-of-bounds elements
+    removed, on the device); `drop_zeros` also removes explicit zeros
+    inside stored blocks.  numpy has no bfloat16: bf16 values arrive
+    widened to float32 (exactly)."""
+    nnz = int(a.nnz)
+    chunk = min(chunk_blocks, a.cap)
+    for s in range(0, nnz, chunk):
+        e = min(s + chunk, nnz)
+        ok = torch.ones(e - s, dtype=torch.bool, device=a.device)
+        rows, cols, mask = _coo_of(a, a.ids[s:e], ok)
+        vals = a.data[s:e]
+        if drop_zeros:
+            mask = mask & (vals != 0)
+        if vals.dtype == torch.bfloat16:
+            vals = vals.float()
+        yield tuple(x[mask].cpu().numpy() for x in (rows, cols, vals))
+
+
+def get_values(a: BlockMatrix, rows, cols) -> torch.Tensor:
+    """Random-access element reads, on `a`'s device: a binary search over
+    the sorted ids; elements of absent blocks read 0."""
+    rows = torch.as_tensor(np.asarray(rows), device=a.device).to(torch.int64)
+    cols = torch.as_tensor(np.asarray(cols), device=a.device).to(torch.int64)
+    b = a.block_size
+    bid = (rows // b) * a.nb_cols + cols // b
+    pos = torch.searchsorted(a.ids.to(torch.int64), bid).clamp_(max=a.cap - 1)
+    hit = a.ids[pos].to(torch.int64) == bid
+    vals = a.data[pos, rows % b, cols % b]
+    return torch.where(hit, vals, 0)

@@ -27,6 +27,15 @@ SENTINEL = int(np.iinfo(np.int32).max)
 
 
 @dataclass(frozen=True)
+class Params:
+    """Construction parameters (the reference's ``Params{blocksize}``).
+    The device is not a parameter: it is the constructor's `device`."""
+
+    block_size: int = 128
+    dtype: torch.dtype = torch.float32
+
+
+@dataclass(frozen=True)
 class BlockMatrix:
     """A block-sparse matrix as a flat, sorted list of dense leaf blocks."""
 

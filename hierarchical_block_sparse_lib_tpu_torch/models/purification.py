@@ -7,7 +7,8 @@ near-zero blocks and records exact counters.
 A step runs at fixed capacities and never waits for the device: flags
 and counters stay 0-dim tensors.  The host reads the device only where
 the reference does too: `profile_purify`, `plan_purify` and
-`PurifyEngine`.  The symmetric (syrk) variant is not ported yet.
+`PurifyEngine`.  With ``symmetric=True`` a step computes only the
+upper-triangle products of X @ X (X = X^T) and mirrors the rest.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from hierarchical_block_sparse_lib_tpu_torch.core.block_matrix import (
     SENTINEL,
     BlockMatrix,
 )
-from hierarchical_block_sparse_lib_tpu_torch.ops import repack as repack_mod
+from hierarchical_block_sparse_lib_tpu_torch.ops import basic, repack as repack_mod
 from hierarchical_block_sparse_lib_tpu_torch.ops.norms import trace
 from hierarchical_block_sparse_lib_tpu_torch.ops.spgemm import (
     SymbolicPlan,
@@ -31,13 +32,6 @@ from hierarchical_block_sparse_lib_tpu_torch.ops.spgemm import (
     spgemm,
 )
 from hierarchical_block_sparse_lib_tpu_torch.ops.truncate import truncate
-
-
-def _no_symmetric(symmetric: bool) -> None:
-    if symmetric:
-        raise NotImplementedError(
-            "symmetric (syrk) purification is not ported yet (ROADMAP Queue 1 #7)"
-        )
 
 
 @dataclass(frozen=True)
@@ -82,18 +76,59 @@ def sp2_step(
     as the fused C = (2s-1)*X@X + (2-2s)*X with s = [trace > target]
     (one structural pass, no branch), then drop blocks with Frobenius
     norm <= tau straight into capacity `cap` (default cap(x); overflow is
-    reported in the stats).  Returns (X_next, PurificationStats)."""
-    _no_symmetric(symmetric)
+    reported in the stats).  Returns (X_next, PurificationStats).
+
+    With `symmetric=True` (X symmetric, the physical case) only the
+    upper-triangle products of X @ X run and the lower triangle is
+    mirrored, so the iterate is symmetric element for element and
+    `n_block_pairs` counts the products done, about half.  Unplanned,
+    the step accumulates beta * triu(X) into an upper-only product,
+    truncates it and rebuilds the lower triangle (`symmetrize_upper`).
+    With a plan from ``make_plan(..., sym_mirror=True)`` it fills the
+    generic union slots with upper products (the row-panel kernel skips
+    the lower ones) and overwrites the strictly lower slots with
+    transposed upper blocks through the plan's `mirror_src`: no
+    structural work per step."""
     cap = x.cap if cap is None else cap
     t = trace(x)
     target = target_trace.to(t.dtype) if isinstance(target_trace, torch.Tensor) else target_trace
     s = (t > target).to(x.dtype)
     alpha, beta = 2.0 * s - 1.0, 2.0 - 2.0 * s
-    y, info = spgemm(
-        x, x, pair_cap=pair_cap, out_cap=out_cap, backend=backend,
-        row_caps=row_caps, accum=x, alpha=alpha, beta=beta, plan=plan,
-    )
-    y, nnz_kept = truncate(y, tau, cap=cap)
+    kw = dict(pair_cap=pair_cap, out_cap=out_cap, backend=backend, row_caps=row_caps,
+              alpha=alpha, beta=beta)
+    if symmetric and plan is not None:
+        if plan.mirror_src is None:
+            raise ValueError(
+                "sp2_step(symmetric=True, plan=...) needs a plan built with "
+                "make_plan(..., sym_mirror=True)"
+            )
+        y, info = spgemm(x, x, accum=x, plan=plan, syrk_upper=True, **kw)
+        nb = y.nb_cols
+        yv = y.valid_mask()
+        lower = yv & (y.ids // nb > y.ids % nb)
+        diag = yv & (y.ids // nb == y.ids % nb)
+        data = torch.where(
+            lower[:, None, None], y.data[plan.mirror_src.long()].transpose(-1, -2), y.data
+        )
+        # A diagonal block of an upper-only product is symmetric only to
+        # rounding: average it with its transpose (symmetrize_upper's rule).
+        data = torch.where(diag[:, None, None], 0.5 * (data + data.transpose(-1, -2)), data)
+        y, nnz_kept = truncate(y.with_data(data), tau, cap=cap)
+        info = dataclasses.replace(
+            info, n_block_pairs=plan.total_syrk,
+            plan_mismatch=info.plan_mismatch | ~plan.mirror_ok,
+        )
+    elif symmetric:
+        # X^T == X: X itself is the transposed operand.  Truncating the
+        # upper triangle and mirroring it is symmetric truncation, since
+        # ||Y_ij|| == ||Y_ji|| for a symmetric iterate.
+        yu, info = spgemm(x, x, accum=basic.triu(x), syrk_upper=True, **kw)
+        y, sym_ovf = basic.symmetrize_upper(truncate(yu, tau), cap)
+        info = dataclasses.replace(info, out_overflow=info.out_overflow | sym_ovf)
+        nnz_kept = torch.where(sym_ovf, cap + 1, y.nnz)
+    else:
+        y, info = spgemm(x, x, accum=x, plan=plan, **kw)
+        y, nnz_kept = truncate(y, tau, cap=cap)
     stats = PurificationStats(
         trace=t,
         nnz_blocks=y.nnz,
@@ -143,20 +178,21 @@ def plan_purify(
 ) -> PurifyPlans:
     """Walk the SP2 trajectory once at `prof`'s capacities (bit-identical
     to the scan: same caps, same kernels) and capture each step's
-    symbolic+union plan.  Reads the overflow flags on the host."""
-    _no_symmetric(symmetric)
+    symbolic+union plan (with the mirror map when `symmetric`).  Reads
+    the overflow flags on the host."""
     cap = prof.cap
     xi = repack_mod.repack(x, cap)
     plans, exp = [], []
     for k in range(n_steps):
         exp.append(xi.ids)
         plans.append(
-            make_plan(xi, xi, prof.pair_cap, accum_ids=xi.ids, out_cap=prof.out_cap)
+            make_plan(xi, xi, prof.pair_cap, accum_ids=xi.ids, out_cap=prof.out_cap,
+                      sym_mirror=symmetric)
         )
         xi, s = sp2_step(
             xi, tau, pair_cap=prof.pair_cap, out_cap=prof.out_cap,
             target_trace=target_trace, backend=backend, cap=cap,
-            row_caps=prof.row_caps, plan=plans[-1],
+            row_caps=prof.row_caps, plan=plans[-1], symmetric=symmetric,
         )
         if bool(s.pair_overflow | s.out_overflow | s.repack_overflow):
             raise RuntimeError(
@@ -196,8 +232,7 @@ def purify_scan(
 
     With `plans` (from `plan_purify`, same capacities), each step reuses
     its precomputed structure and runs only the numeric phase, the
-    gather-add and the truncation."""
-    _no_symmetric(symmetric)
+    gather-add and the truncation (and, when `symmetric`, the mirror)."""
     cap = out_cap if cap is None else cap
     # The initial repack may drop input blocks: fold that into step 0's
     # repack_overflow so it is never silent.
@@ -213,7 +248,8 @@ def purify_scan(
         x, s = sp2_step(
             x, tau, pair_cap=pair_cap, out_cap=out_cap,
             target_trace=target_trace, backend=backend, cap=cap,
-            row_caps=row_caps, plan=None if plans is None else plans.step(k),
+            row_caps=row_caps, symmetric=symmetric,
+            plan=None if plans is None else plans.step(k),
         )
         stats.append(s)
     stats = _stack_stats(stats)
@@ -235,7 +271,6 @@ def purify(
 ):
     """Run `n_steps` SP2 iterations; `cap` is the iterate's capacity
     (default out_cap).  Returns (X_final, list[PurificationStats])."""
-    _no_symmetric(symmetric)
     cap = out_cap if cap is None else cap
     init_ovf = x.nnz > cap
     x = repack_mod.repack(x, cap)
@@ -244,6 +279,7 @@ def purify(
         x, s = sp2_step(
             x, tau, pair_cap=pair_cap, out_cap=out_cap,
             target_trace=target_trace, backend=backend, cap=cap,
+            symmetric=symmetric,
         )
         stats.append(s)
     if stats:
@@ -275,12 +311,14 @@ class PurifyEngine:
         margin: float = 1.25,
         symmetric: bool = False,
     ):
-        _no_symmetric(symmetric)
+        # symmetric=True runs the planned symmetric tier on the generic
+        # capacity profile: its plans use the generic union and pairs.
         self.n_steps = n_steps
         self.tau = tau
         self.target_trace = target_trace
         self.backend = backend
         self.margin = margin
+        self.symmetric = symmetric
         self.prof: CapacityProfile | None = None
         self.plans: PurifyPlans | None = None
         self.n_replans = 0
@@ -301,6 +339,7 @@ class PurifyEngine:
         self.plans = plan_purify(
             x, self.n_steps, self.tau, self.prof,
             target_trace=self.target_trace, backend=self.backend,
+            symmetric=self.symmetric,
         )
         self.n_replans += 1
 
@@ -329,7 +368,7 @@ class PurifyEngine:
             self._replan(x)
         kw = dict(
             target_trace=self.target_trace, backend=self.backend,
-            plans=self.plans, **self.prof.kwargs(),
+            plans=self.plans, symmetric=self.symmetric, **self.prof.kwargs(),
         )
         xf, stats = purify_scan(x, self.n_steps, self.tau, **kw)
         if self._bad(stats):
@@ -387,7 +426,6 @@ def profile_purify(
     are dropped, and the dry run's caps are exact host plans (pairs,
     rows) and sure bounds (out = product outputs + nnz), pow2-bucketed.
     `margin > 1` loosens the returned caps for nearby structures."""
-    _no_symmetric(symmetric)
     xi = x
     mbr_m = mcr_m = 1
     pairs_l, out_l, kept_l = [], [], []
@@ -401,7 +439,7 @@ def profile_purify(
         xi, s = sp2_step(
             xi, tau, pair_cap=run_pc, out_cap=run_oc,
             target_trace=target_trace, backend=backend, cap=run_oc,
-            row_caps=run_rc,
+            row_caps=run_rc, symmetric=symmetric,
         )
         if bool(s.pair_overflow | s.out_overflow | s.repack_overflow):
             raise RuntimeError(

@@ -1,6 +1,7 @@
-"""Add / scale / transpose and the union merge (port of ``ops/basic.py``):
-the structural-union tree walk becomes a merge of two sorted id lists,
-and transpose an id remap plus a batched axis swap."""
+"""Add / scale / transpose, the union merge and the block-triangle
+filters (port of ``ops/basic.py``): the structural-union tree walk
+becomes a merge of two sorted id lists, transpose an id remap plus a
+batched axis swap, and `triu`/`tril` a stable compaction."""
 
 from __future__ import annotations
 
@@ -84,6 +85,70 @@ def union_merge(c_id: torch.Tensor, acc_ids: torch.Tensor, out_cap: int):
     slot_orig = slot_orig.to(torch.int32)
     n = c_id.shape[0]
     return out_ids[:out_cap], slot_orig[:n], slot_orig[n:], n_unique
+
+
+def filter_blocks(a: BlockMatrix, keep: torch.Tensor) -> BlockMatrix:
+    """Drop stored blocks where `keep` (bool[cap]) is False.  Capacity is
+    unchanged and survivors stay sorted at the front: a stable compaction
+    without a sort (ids are sorted), whose block tensor moves by one
+    gather; source index `cap` reads an appended SENTINEL/zero row."""
+    keep = keep & a.valid_mask()
+    cap = a.cap
+    slot = torch.where(keep, torch.cumsum(keep, 0) - 1, cap)
+    src = torch.full((cap + 1,), cap, dtype=torch.int64, device=a.device)
+    src[slot] = torch.arange(cap, device=a.device)
+    src = src[:cap]
+    pad = src == cap
+    srcc = src.clamp(max=cap - 1)
+    return BlockMatrix(
+        ids=torch.where(pad, SENTINEL, a.ids[srcc]).to(torch.int32),
+        data=torch.where(pad[:, None, None], 0, a.data[srcc]),
+        nnz=keep.sum().to(torch.int32),
+        n_rows=a.n_rows, n_cols=a.n_cols, block_size=a.block_size,
+    )
+
+
+def triu(a: BlockMatrix, strict: bool = False) -> BlockMatrix:
+    """Keep blocks with block_row <= block_col (< if `strict`)."""
+    brow, bcol = a.ids // a.nb_cols, a.ids % a.nb_cols
+    return filter_blocks(a, (brow < bcol) if strict else (brow <= bcol))
+
+
+def tril(a: BlockMatrix, strict: bool = False) -> BlockMatrix:
+    """Keep blocks with block_row >= block_col (> if `strict`)."""
+    brow, bcol = a.ids // a.nb_cols, a.ids % a.nb_cols
+    return filter_blocks(a, (brow > bcol) if strict else (brow >= bcol))
+
+
+def symmetrize_upper(a: BlockMatrix, cap: int):
+    """(S, overflow): S is the upper block triangle of A mirrored below
+    (S_ij = A_ij for i <= j, S_ji = A_ij^T), at capacity `cap`; one
+    concatenation and one `compact_sorted`.
+
+    Diagonal blocks are averaged with their own transpose, so S is
+    symmetric element for element: a diagonal block of an upper-only
+    product is symmetric only to rounding (its (a, b) and (b, a) entries
+    sum the same products in another order)."""
+    brow, bcol = a.ids // a.nb_cols, a.ids % a.nb_cols
+    valid = a.valid_mask()
+    up = valid & (brow <= bcol)
+    strict = valid & (brow < bcol)
+    diag = valid & (brow == bcol)
+    ids_up = torch.where(up, a.ids, SENTINEL)
+    ids_lo = torch.where(strict, bcol * a.nb_rows + brow, SENTINEL)
+    data_up = torch.where(up[:, None, None], a.data, 0)
+    data_up = torch.where(
+        diag[:, None, None], 0.5 * (data_up + data_up.transpose(-1, -2)), data_up
+    )
+    data_lo = torch.where(strict[:, None, None], a.data.transpose(-1, -2), 0)
+    out_ids, out_data, nnz = compact_sorted(
+        torch.cat([ids_up, ids_lo]).to(torch.int32), torch.cat([data_up, data_lo]), cap
+    )
+    s = BlockMatrix(
+        ids=out_ids, data=out_data, nnz=torch.clamp(nnz, max=cap),
+        n_rows=a.n_rows, n_cols=a.n_cols, block_size=a.block_size,
+    )
+    return s, nnz > cap
 
 
 def transpose(a: BlockMatrix) -> BlockMatrix:

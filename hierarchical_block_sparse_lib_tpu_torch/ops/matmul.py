@@ -12,12 +12,18 @@ H100 times that would re-decide the rule are in PERF.md.
 
 from __future__ import annotations
 
+import dataclasses
+
 from hierarchical_block_sparse_lib_tpu_torch.core.block_matrix import BlockMatrix
 from hierarchical_block_sparse_lib_tpu_torch.kernels.pallas_gemm_groups import (
     plan_groups,
 )
 from hierarchical_block_sparse_lib_tpu_torch.ops import basic
-from hierarchical_block_sparse_lib_tpu_torch.ops.spgemm import plan_spgemm_ex, spgemm
+from hierarchical_block_sparse_lib_tpu_torch.ops.spgemm import (
+    plan_spgemm_ex,
+    plan_syrk,
+    spgemm,
+)
 
 
 def matmul(
@@ -47,9 +53,26 @@ def matmul(
 
 def syrk(a: BlockMatrix, alpha=1.0, transpose: bool = False,
          precision: str = "highest", backend: str = "auto", full: bool = True):
-    """C = alpha * A @ A^T with only upper-triangle products: not ported
-    yet, because `spgemm` lacks its `syrk_upper` mode."""
-    raise NotImplementedError(
-        "syrk is not ported yet (ROADMAP Queue 1 #6): it needs spgemm's "
-        "syrk_upper mode"
+    """Symmetric rank-k product C = alpha * A @ A^T (A^T @ A with
+    `transpose=True`), computing only upper-triangle (block row <= block
+    column) outputs, about half the leaf products of the generic multiply;
+    the lower triangle is mirrored afterwards as C_ji = C_ij^T (a
+    transpose and a union add, no products).  At 128-wide leaves "auto"
+    runs it on the row-panel kernel with its `triu` skip.
+
+    With `full=False` only the upper triangle is returned.
+    `info.n_block_pairs` counts the products actually done (upper pairs).
+    Returns (C, MultiplyInfo)."""
+    ae = basic.transpose(a) if transpose else a
+    at = basic.transpose(ae)
+    plan = plan_syrk(ae)
+    cu, info = spgemm(
+        ae, at, pair_cap=max(plan.pairs_raw, 1), gemm_cap=max(plan.pairs_upper, 1),
+        out_cap=max(plan.out_upper, 1), alpha=alpha, precision=precision,
+        backend=backend, row_caps=(plan.max_b_row, plan.max_c_row), syrk_upper=True,
     )
+    if not full:
+        return cu, info
+    low = basic.transpose(basic.triu(cu, strict=True))
+    c, add_ovf = basic.add_with_info(cu, low, cap=max(plan.out_full, 1))
+    return c, dataclasses.replace(info, out_overflow=info.out_overflow | add_ovf)

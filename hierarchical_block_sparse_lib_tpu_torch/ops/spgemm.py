@@ -14,9 +14,12 @@ kernel (``"groups"``), the row-panel kernel (``"rows"``), the fine kernel
 gather + `bmm` + `index_add_` (``"xla"``, the reference's non-Pallas
 path, which float64 takes).
 
-Not ported yet, and raising `NotImplementedError`: the norm filter and
-the upper-triangle enumeration (``filter_by_norm``/``syrk_upper``), the
-aligned accumulate (``accum_aligned``) and the symmetric-mirror plan.
+The upper-triangle enumeration (``syrk_upper``) runs on "rows" (the
+kernel's `triu` skip), "pallas" and "xla"; `plan_syrk` sizes it and
+``make_plan(sym_mirror=True)`` plans the symmetric purification step.
+Not ported yet, and raising `NotImplementedError`: the norm filter
+(``filter_by_norm``, ROADMAP Queue 1 #4) and the aligned accumulate
+(``accum_aligned``, Queue 1 #5).
 """
 
 from __future__ import annotations
@@ -57,16 +60,31 @@ class MultiplyInfo:
     n_leaf_multiplies: torch.Tensor  # int32[]
 
 
-def spgemm_symbolic(a: BlockMatrix, b: BlockMatrix, pair_cap: int):
+def spgemm_symbolic(
+    a: BlockMatrix,
+    b: BlockMatrix,
+    pair_cap: int,
+    tau=0.0,
+    filter_by_norm: bool = False,
+    syrk_upper: bool = False,
+):
     """Enumerate contributing block pairs, sorted by output block id.
 
     Returns (a_idx, b_idx, c_id, total, raw_total): int32[pair_cap]
-    arrays; entries past `total` have c_id == SENTINEL.  `raw_total` is
-    the pair count before any filter (enumeration overflows iff
-    raw_total > pair_cap); this port has no filter yet, so it equals
-    `total`.  The norm filter and the upper-triangle mode of the JAX
-    package are not ported.
+    arrays; entries past `total` have c_id == SENTINEL.  `total` counts
+    the pairs that survive the filters, `raw_total` all enumerated pairs
+    (enumeration overflows iff raw_total > pair_cap).
+
+    Filters drop pairs before the numeric phase; survivors sort to the
+    front, so a caller may slice the lists to a tight `gemm_cap`.
+    `syrk_upper` keeps the pairs of upper-triangle outputs (block row <=
+    block column): for C = A @ A^T (b = A^T) the caller mirrors
+    C_ji = C_ij^T afterwards, about half the leaf products.  The norm
+    filter (`filter_by_norm`) is not ported yet.
     """
+    if filter_by_norm:
+        raise _not_ported("the norm filter", "Queue 1 #4")
+    del tau
     dev = a.ids.device
     i32 = torch.int32
     a_valid = a.valid_mask()
@@ -85,7 +103,7 @@ def spgemm_symbolic(a: BlockMatrix, b: BlockMatrix, pair_cap: int):
     hi = b_row_start[torch.clamp(a_col + 1, max=b.nb_rows).long()]
     cnt = torch.where(a_valid, hi - lo, 0)
     offs = torch.cumsum(cnt, 0, dtype=i32)
-    total = offs[-1]
+    raw_total = offs[-1]
 
     # Expand: pair p belongs to A entry e = first index with offs[e] > p.
     p = torch.arange(pair_cap, dtype=i32, device=dev)
@@ -93,19 +111,23 @@ def spgemm_symbolic(a: BlockMatrix, b: BlockMatrix, pair_cap: int):
     e_c = torch.clamp(e, max=a.cap - 1).long()
     base = torch.where(e_c > 0, offs[e_c - 1], 0)
     t = p - base
-    valid_p = p < total
+    valid_p = p < raw_total
     a_idx = e_c
     b_idx = torch.clamp(lo[e_c] + t, max=b.cap - 1).long()
-    c_id = torch.where(
-        valid_p, a_row[e_c] * b.nb_cols + b_col[b_idx], SENTINEL
-    ).to(i32)
+    c_row, c_col = a_row[e_c], b_col[b_idx]
+    # Each filter masks valid_p (the norm filter of ROADMAP Queue 1 #4
+    # joins here); `total` then counts the survivors.
+    if syrk_upper:
+        valid_p = valid_p & (c_row <= c_col)
+    c_id = torch.where(valid_p, c_row * b.nb_cols + c_col, SENTINEL).to(i32)
+    total = valid_p.sum().to(i32) if syrk_upper else raw_total
     order = torch.argsort(c_id, stable=True)
     return (
         a_idx[order].to(i32),
         b_idx[order].to(i32),
         c_id[order],
         total.to(i32),
-        total.to(i32),
+        raw_total.to(i32),
     )
 
 
@@ -130,6 +152,67 @@ def plan_spgemm(a: BlockMatrix, b: BlockMatrix):
     )
 
 
+class SyrkPlan:
+    """Exact host plan of the symmetric product C = A @ A^T with
+    upper-triangle-only (i <= j) enumeration."""
+
+    __slots__ = (
+        "pairs_raw", "pairs_upper", "out_upper", "out_diag",
+        "max_b_row", "max_c_row",
+    )
+
+    def __init__(self, pairs_raw, pairs_upper, out_upper, out_diag,
+                 max_b_row, max_c_row):
+        self.pairs_raw = pairs_raw  # unfiltered enumeration size
+        self.pairs_upper = pairs_upper  # leaf products actually done
+        self.out_upper = out_upper  # distinct i <= j output blocks
+        self.out_diag = out_diag  # of which diagonal (i == j)
+        self.max_b_row = max_b_row  # row-panel kernel caps
+        self.max_c_row = max_c_row
+
+    @property
+    def out_full(self):
+        """Distinct output blocks after mirroring."""
+        return 2 * self.out_upper - self.out_diag
+
+
+def plan_syrk(a: BlockMatrix) -> SyrkPlan:
+    """Host-side exact plan for `syrk` (C = A @ A^T, upper-only pairs):
+    the symbolic workspace enumerates all `pairs_raw` candidates
+    (pair_cap), and `pairs_upper` of them, about half, reach the numeric
+    phase (gemm_cap)."""
+    ids = a.ids.cpu().numpy().astype(np.int64)
+    ids = ids[ids != SENTINEL]
+    nbc, nbr = a.nb_cols, a.nb_rows
+    row, col = ids // nbc, ids % nbc
+    # A^T in canonical sorted order; its block-rows are A's block-cols.
+    at = np.sort(col * nbr + row)
+    at_row, at_col = at // nbr, at % nbr
+    lo = np.searchsorted(at_row, col, side="left")
+    hi = np.searchsorted(at_row, col, side="right")
+    cnt = hi - lo
+    pairs_raw = int(cnt.sum())
+    offs = np.concatenate([[0], np.cumsum(cnt)])
+    max_b_row = int(np.bincount(col).max()) if ids.size else 0
+    pairs_upper = 0
+    out_ids: set = set()
+    chunk = 1 << 22
+    for s in range(0, pairs_raw, chunk):
+        p = np.arange(s, min(s + chunk, pairs_raw))
+        e = np.searchsorted(offs, p, side="right") - 1
+        j = lo[e] + p - offs[e]
+        keep = row[e] <= at_col[j]
+        pairs_upper += int(keep.sum())
+        out_ids.update(np.unique((row[e] * nbr + at_col[j])[keep]).tolist())
+    if out_ids:
+        oid = np.fromiter(out_ids, np.int64)
+        out_diag = int(np.sum(oid // nbr == oid % nbr))
+        max_c_row = int(np.bincount(oid // nbr).max())
+    else:
+        out_diag = max_c_row = 0
+    return SyrkPlan(pairs_raw, pairs_upper, len(out_ids), out_diag, max_b_row, max_c_row)
+
+
 @dataclass(frozen=True)
 class SymbolicPlan:
     """Device-resident symbolic plan (the output of `spgemm_symbolic`),
@@ -140,9 +223,14 @@ class SymbolicPlan:
     Built with ``accum_ids=``/``out_cap=``, it also holds the union
     structure of the product support with the accumulator support
     (`out_ids`, `seg`, `pos_acc`, `n_unique`), so a fixed-support
-    C = alpha*A@B + beta*D costs no structural work at all.  The
-    symmetric-mirror fields are the reference's; the port never sets
-    them yet."""
+    C = alpha*A@B + beta*D costs no structural work at all.
+
+    Built with ``sym_mirror=True`` for a symmetric product structure, it
+    also holds the mirror map: `mirror_src[j]` is the union slot holding
+    the transpose of slot j's block (slot j itself for upper and diagonal
+    slots), `total_syrk` the upper-triangle pairs (the products of the
+    `syrk_upper` run), and `mirror_ok` is False when the union id set is
+    not symmetric (folded into `plan_mismatch`)."""
 
     a_idx: torch.Tensor  # int32[pair_cap]
     b_idx: torch.Tensor  # int32[pair_cap]
@@ -158,9 +246,9 @@ class SymbolicPlan:
     pos_acc: torch.Tensor | None = None  # int32[acc_cap] accum -> union slot
     n_unique: torch.Tensor | None = None  # int32[] distinct union blocks
     acc_ids: torch.Tensor | None = None  # int32[acc_cap] planned accum ids
-    mirror_src: torch.Tensor | None = None
-    total_syrk: torch.Tensor | None = None
-    mirror_ok: torch.Tensor | None = None
+    mirror_src: torch.Tensor | None = None  # int32[out_cap]
+    total_syrk: torch.Tensor | None = None  # int32[]
+    mirror_ok: torch.Tensor | None = None  # bool[]
 
 
 def ids_mismatch(pairs) -> torch.Tensor:
@@ -180,6 +268,27 @@ def _not_ported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
+def _mirror_map(c_id: torch.Tensor, out_ids: torch.Tensor, nb: int) -> dict:
+    """The symmetric-mirror fields of a plan over product ids `c_id` and
+    union ids `out_ids` on an nb x nb block grid (`SymbolicPlan`)."""
+    cv = c_id != SENTINEL
+    total_syrk = (cv & (c_id // nb <= c_id % nb)).sum().to(torch.int32)
+    ov = out_ids != SENTINEL
+    orow = torch.where(ov, out_ids // nb, 0)
+    ocol = torch.where(ov, out_ids % nb, 0)
+    mid = torch.where(ov, ocol * nb + orow, SENTINEL).to(torch.int32)
+    src = torch.searchsorted(out_ids, mid, out_int32=True).clamp_(max=out_ids.shape[0] - 1)
+    lower = ov & (orow > ocol)
+    own = torch.arange(out_ids.shape[0], dtype=torch.int32, device=out_ids.device)
+    return dict(
+        mirror_src=torch.where(lower, src, own),
+        total_syrk=total_syrk,
+        # A lower slot without its transpose partner: a stale plan or an
+        # asymmetric structure, loud through plan_mismatch.
+        mirror_ok=torch.all(torch.where(lower, out_ids[src.long()] == mid, True)),
+    )
+
+
 def make_plan(
     a: BlockMatrix,
     b: BlockMatrix,
@@ -196,22 +305,35 @@ def make_plan(
     freely), self-checked on use.  With `accum_ids` (the accumulator's
     sorted ids) and `out_cap`, the beta-accumulate union is planned too:
     the matching ``spgemm(..., plan=..., accum=...)`` call uses the same
-    `out_cap` and an accumulator with exactly these ids."""
-    del tau
-    if filter_by_norm or syrk_upper:
-        raise _not_ported("the norm filter and syrk enumeration", "Queue 1 #6")
-    if sym_mirror:
-        raise _not_ported("the symmetric-mirror plan", "Queue 1 #7")
-    sym = spgemm_symbolic(a, b, pair_cap)
+    `out_cap` and an accumulator with exactly these ids.
+
+    With `sym_mirror=True` (needs `accum_ids`/`out_cap`; operands and
+    union symmetric in structure) the plan also carries the mirror map of
+    the planned symmetric step: ``spgemm(..., plan=..., syrk_upper=True)``
+    fills the generic union slots with upper-triangle products only (the
+    row-panel kernel's `triu` skip), then the caller overwrites the
+    strictly lower slots with transposed upper blocks through
+    `mirror_src` (see `models.purification.sp2_step`).  That differs from
+    `syrk_upper=True` here, which plans upper-only pairs and outputs."""
+    sym = spgemm_symbolic(
+        a, b, pair_cap, tau=tau, filter_by_norm=filter_by_norm, syrk_upper=syrk_upper,
+    )
     rec = dict(a_ids=a.ids, b_ids=b.ids)
     if accum_ids is None:
+        if sym_mirror:
+            raise ValueError("sym_mirror requires accum_ids/out_cap")
         return SymbolicPlan(*sym, **rec)
     if out_cap is None:
         raise ValueError("make_plan(accum_ids=...) requires out_cap")
     out_ids, seg, pos_acc, n_unique = basic.union_merge(sym[2], accum_ids, out_cap)
+    mirror = {}
+    if sym_mirror:
+        if a.n_rows != a.n_cols:
+            raise ValueError("sym_mirror needs a square matrix")
+        mirror = _mirror_map(sym[2], out_ids, a.nb_rows)
     return SymbolicPlan(
         *sym, **rec, out_ids=out_ids, seg=seg, pos_acc=pos_acc,
-        n_unique=n_unique, acc_ids=accum_ids,
+        n_unique=n_unique, acc_ids=accum_ids, **mirror,
     )
 
 
@@ -235,10 +357,11 @@ def resolve_backend(
     for CPU tensors):
 
     - float64 data: ``"xla"`` (the kernels accumulate in f32);
-    - `group_caps` given and the row-group kernel takes the leaf:
-      ``"groups"``;
+    - `group_caps` given and the row-group kernel takes the leaf (never
+      with `syrk_upper`): ``"groups"``;
     - `row_caps` given and the row-panel kernel takes the leaf: ``"rows"``;
-    - `row_caps` given and the fine kernel takes the leaf: ``"fine"``;
+    - `row_caps` given and the fine kernel takes the leaf (never with
+      `syrk_upper`): ``"fine"``;
     - other b % 128 == 0: ``"pallas"``, the pair-stream kernel;
     - anything else: ``"xla"``.
 
@@ -410,13 +533,20 @@ def spgemm(
     `a_leaf_occ`/`b_leaf_occ` (from ``coarsen(..., track_leaves=True)``)
     make `n_leaf_multiplies` the exact leaf-product count at the fine
     leaf size; it is -1 without them.
+
+    `syrk_upper` computes only the products of upper-triangle outputs
+    (block row <= block column): the symbolic phase drops the other pairs,
+    and "rows" skips them in the kernel (`triu`), so with a generic `plan`
+    its lower slots hold no product.  "groups" and "fine" decline it, as
+    in the reference.  The norm filter (`filter_by_norm`, `tau`) is not
+    ported yet.
     """
-    if filter_by_norm or syrk_upper:
-        raise _not_ported("the norm filter and syrk enumeration", "Queue 1 #6")
+    if filter_by_norm:
+        raise _not_ported("the norm filter", "Queue 1 #4")
     if (a_leaf_occ is None) != (b_leaf_occ is None):
         raise ValueError("a_leaf_occ and b_leaf_occ go together")
     if accum_aligned:
-        raise _not_ported("the aligned accumulate", "Queue 1 #2")
+        raise _not_ported("the aligned accumulate", "Queue 1 #5")
     del tau
     if transpose_a:
         a = basic.transpose(a)
@@ -433,7 +563,8 @@ def spgemm(
     plan_mismatch = torch.zeros((), dtype=torch.bool, device=dev)
 
     if plan is None:
-        a_idx, b_idx, c_id, total, raw_total = spgemm_symbolic(a, b, pair_cap)
+        a_idx, b_idx, c_id, total, raw_total = spgemm_symbolic(
+            a, b, pair_cap, syrk_upper=syrk_upper)
     else:
         if plan.a_idx.shape[0] != pair_cap:
             raise ValueError(
@@ -485,6 +616,7 @@ def spgemm(
         backend = resolve_backend(
             a.block_size, a.dtype, b.nb_cols, pair_cap,
             row_caps=row_caps, group_caps=group_caps,
+            filter_by_norm=filter_by_norm, syrk_upper=syrk_upper,
         )
     acc_dtype = torch.promote_types(a.dtype, torch.float32)
     if backend == "groups":
@@ -508,15 +640,21 @@ def spgemm(
     elif backend in ("rows", "fine"):
         if row_caps is None:
             raise ValueError(f"backend={backend!r} requires row_caps (plan_spgemm_ex)")
-        kernel = (
-            pallas_gemm_rows.rows_spgemm if backend == "rows"
-            else pallas_gemm_fine.fine_spgemm
-        )
-        out_data = kernel(
+        kargs = (
             a.ids, a.data, b.ids, b.data, out_ids_pre,
-            a.nb_rows, b.nb_rows, b.nb_cols, out_cap,
-            row_caps[0], row_caps[1], precision=precision,
+            a.nb_rows, b.nb_rows, b.nb_cols, out_cap, row_caps[0], row_caps[1],
         )
+        if backend == "rows":
+            out_data = pallas_gemm_rows.rows_spgemm(
+                *kargs, precision=precision, triu=syrk_upper
+            )
+        elif filter_by_norm or syrk_upper:
+            raise ValueError(
+                "backend='fine' supports neither filter_by_norm nor syrk_upper; "
+                "use the xla backend at sub-128 leaves"
+            )
+        else:
+            out_data = pallas_gemm_fine.fine_spgemm(*kargs, precision=precision)
         rows_over = row_overflow(b, out_ids_pre, a.nb_rows, row_caps)
     elif backend == "xla":
         out_data = _xla_numeric_accumulate(

@@ -31,10 +31,10 @@ def truncate(
     storage and the return value becomes ``(matrix, kept)``, where
     `kept` is the survivor count before the clamp: ``kept > cap`` means
     trailing (highest-id) survivors were dropped.  Subtree truncation
-    (`subtree_level`) is not ported yet.
+    (`subtree_level`) is not ported yet (ROADMAP Queue 1 #7).
     """
     if subtree_level is not None:
-        raise NotImplementedError("subtree truncation is not ported yet")
+        raise NotImplementedError("subtree truncation is not ported yet (ROADMAP Queue 1 #7)")
     if pallas_norms.supported(a.block_size, a.dtype):
         _, keep = pallas_norms.norms_and_keep(a.data, tau)
     else:

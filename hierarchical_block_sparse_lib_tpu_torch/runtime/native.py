@@ -59,6 +59,10 @@ def _load_lib():
     lib.hbsm_symbolic_spgemm.argtypes = [
         i32p, i64, i32p, i64, i32, i32, i64, i32p, i32p, i32p,
     ]
+    lib.hbsm_plan_add.restype = i64
+    lib.hbsm_plan_add.argtypes = [i32p, i64, i32p, i64]
+    lib.hbsm_count_coo_blocks.restype = i64
+    lib.hbsm_count_coo_blocks.argtypes = [i32p, i32p, i64, i32, i32]
     _LIB = lib
     return _LIB
 
@@ -161,6 +165,46 @@ def plan_spgemm_ex(a_ids, b_ids, a_nbc, b_nbr, b_nbc):
         )
         return tuple(int(v) for v in out)
     return plan_spgemm_ex_numpy(a_ids, b_ids, a_nbc, b_nbc)
+
+
+def plan_add_numpy(a_ids, b_ids) -> int:
+    """|union| of two id lists (SENTINEL padding ignored), numpy host path."""
+    a = np.asarray(a_ids)
+    b = np.asarray(b_ids)
+    return int(np.union1d(a[a != _SENTINEL], b[b != _SENTINEL]).size)
+
+
+def plan_add(a_ids, b_ids) -> int:
+    """|union| of two sorted id lists: the exact capacity of `add`; C++
+    fast path when available."""
+    lib = _load_lib()
+    a_ids = _c32(a_ids)
+    b_ids = _c32(b_ids)
+    if lib is not None:
+        return int(lib.hbsm_plan_add(_ptr32(a_ids), a_ids.size, _ptr32(b_ids), b_ids.size))
+    return plan_add_numpy(a_ids, b_ids)
+
+
+def count_coo_blocks_numpy(rows, cols, block_size: int, nb_cols: int) -> int:
+    """Distinct blocks touched by COO triplets, numpy host path."""
+    bid = (np.asarray(rows) // block_size).astype(np.int64) * nb_cols + (
+        np.asarray(cols) // block_size
+    )
+    return int(np.unique(bid).size)
+
+
+def count_coo_blocks(rows, cols, block_size: int, nb_cols: int) -> int:
+    """Distinct blocks touched by COO triplets: the exact `from_coo`
+    capacity; C++ fast path when available."""
+    lib = _load_lib()
+    rows = _c32(rows)
+    cols = _c32(cols)
+    if lib is not None:
+        return int(lib.hbsm_count_coo_blocks(
+            _ptr32(rows), _ptr32(cols), rows.size,
+            np.int32(block_size), np.int32(nb_cols),
+        ))
+    return count_coo_blocks_numpy(rows, cols, block_size, nb_cols)
 
 
 def symbolic_spgemm(a_ids, b_ids, a_nbc, b_nbc, pair_cap: int):

@@ -191,7 +191,8 @@ print(" ".join(names))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120,
                          capture_output=True, text=True).stdout.split()
     pkg = "hierarchical_block_sparse_lib_tpu_torch."
-    for name in ("models.purification", "kernels.pallas_gemm_fine", "kernels.pallas_gemm_rows",
+    for name in ("api", "utils.serialization",
+                 "models.purification", "kernels.pallas_gemm_fine", "kernels.pallas_gemm_rows",
                  "kernels.pallas_norms", "kernels.micro_fine", "ops.repack",
                  "scripts.micro_fine_kernel", "scripts.micro_fine_kernel2",
                  "scripts.profile_fine_pieces", "utils.profiling"):

@@ -92,8 +92,14 @@ def test_matmul_matches_jax(case, monkeypatch):
     scale = float(np.abs(np.asarray(jc.data)).max())
     assert_same_matrix(tc, jc, rtol=1e-5, atol=1e-5 * scale)
     assert calls == ["groups_spgemm" if case == "banded" else "rows_spgemm"]
-    with pytest.raises(NotImplementedError, match="Queue 1 #6"):
-        syrk(ta)
+    # syrk: the same counters and blocks; "auto" takes the row-panel
+    # kernel with its triu skip (row caps given, groups declined).
+    calls.clear()
+    tcs, tis = syrk(ta, alpha=0.5)
+    jcs, jis = jx.syrk(ja, alpha=0.5)
+    assert_same_info(tis, jis)
+    assert_same_matrix(tcs, jcs, rtol=1e-5, atol=1e-5 * scale)
+    assert calls == ["rows_spgemm"]
 
 
 def test_purify_b128_matches_jax(monkeypatch):

@@ -7,6 +7,7 @@ import pytest
 import torch
 
 import hierarchical_block_sparse_lib_tpu_torch as tx
+from hierarchical_block_sparse_lib_tpu_torch.ops.spgemm import plan_spgemm
 from hierarchical_block_sparse_lib_tpu_torch.utils.generators import banded_block_matrix
 
 N, B, STEPS, TAU, TARGET = 512, 128, 3, 2e-3, 256.0
@@ -58,8 +59,14 @@ def test_purify_equals_purify_scan():
 
 
 def test_symmetric_variant_raises():
+    """The symmetric step runs unplanned, and raises when handed a plan
+    without the mirror map (make_plan(..., sym_mirror=True))."""
     x = shifted_band(40)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tx.sp2_step(x, TAU, 64, 16, symmetric=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tx.PurifyEngine(STEPS, TAU, symmetric=True)
+    pc, oc = plan_spgemm(x, x)
+    y, s = tx.sp2_step(x, TAU, pc, oc + int(x.nnz), symmetric=True)
+    dense = tx.to_dense(y)
+    assert torch.equal(dense, dense.T) and not bool(s.out_overflow)
+    plan = tx.make_plan(x, x, pc, accum_ids=x.ids, out_cap=oc + int(x.nnz))
+    with pytest.raises(ValueError, match="sym_mirror"):
+        tx.sp2_step(x, TAU, pc, oc + int(x.nnz), symmetric=True, plan=plan)
+    assert tx.PurifyEngine(STEPS, TAU, symmetric=True).symmetric

@@ -92,9 +92,9 @@ def test_make_plan_matches_jax(accum):
         if g is not None:
             assert np_(g).dtype == np_(w).dtype, field
             np.testing.assert_array_equal(np_(g), np_(w), err_msg=field)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tx.make_plan(ta, tb, pc, accum_ids=td.ids, out_cap=oc + 12, sym_mirror=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="sym_mirror"):
+        tx.make_plan(ta, tb, pc, sym_mirror=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #4"):
         tx.make_plan(ta, tb, pc, filter_by_norm=True)
 
 

@@ -132,7 +132,8 @@ def test_float64_takes_the_torch_path():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(filter_by_norm=True), dict(syrk_upper=True), dict(accum_aligned=True),
+    dict(filter_by_norm=True), dict(syrk_upper=True, filter_by_norm=True),
+    dict(accum_aligned=True),
 ])
 def test_unported_paths_raise(kw):
     """Nothing falls back quietly: every unported option names its
