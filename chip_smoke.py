@@ -41,8 +41,9 @@ final line):
    counters, with the fine kernel's launch count read around it;
 5. the fine kernel vs its plain version at B2's shapes, bitwise
    determinism of a repeated planned multiply, and CUDA-event times;
-6. one SP2 step of the graft entry's input (1024^2, band 48, 16-blocks
-   coarsened to 128) held against the f64 product of the same step;
+6. one SP2 step through the port's entry (entry.py::entry: the graft
+   entry's input, 1024^2, band 48, 16-blocks coarsened to 128) held
+   against the f64 product of the same step;
 7. the B3 path at its configured size (bench.py's truncation pipeline:
    4096^2 band 256, leaf 128, symmetrised, scaled, shifted; 5 SP2 steps
    at tau=1e-6): profile_purify against the JAX package's capacity
@@ -126,7 +127,25 @@ final line):
     sync): fewer pairs per step than phase 7's scan and at least half, an
     exactly symmetric iterate within 1e-5 of the float64 path and of phase
     7's iterate, launches per scan, frob_block_trunc at b = 128 on
-    norms_and_keep, and times in turns beside phase 7's planned scan.
+    norms_and_keep, and times in turns beside phase 7's planned scan;
+17. (run after phase 16) the rest of the single-chip surface at B3's
+    configured input: SpAMM (A @ A with tau halfway between two pair-norm
+    products near the median) on "rows" and "xla", against plan_spamm
+    (C++ and numpy), each other, spamm_error_bound and f64, one
+    rows_spgemm launch, the kernel with its skip against its plain
+    version, the planned call beside the planned unfiltered one, the
+    kernel's device time and both bounds on the surviving pairs; the
+    aligned accumulate (A @ A + D, D on the product's support) planned
+    and planless against the generic accumulate and f64, one rows_spgemm
+    launch and no other launch as long as one read of D, a missing
+    product block flagged, times in turns; polynomial (pair-stream
+    kernel), chebyshev_apply (Fermi, beta 6, scaled by gershgorin_bound)
+    and inv_sqrt_newton_schulz (S = I + a symmetric band) at the caps
+    their trajectories need, unplanned and planned (bitwise equal), their
+    launches, call times and profiles, against f64 oracles; subtree
+    truncation at level 3 of B3's step-1 product against host f64 node
+    norms, frob_norm and nnz_blocks against the host; and
+    scripts/purification_demo.py at 1024^2 against its tolerance.
 
 Phase 2 also prints each fine-kernel launch's k-chunk, shared memory,
 occupancy, registers and spills at B2's B row cap.  Prints the card line
@@ -777,25 +796,14 @@ def small_groups():
 
 
 def graft_step():
-    """Phase 6: one SP2 step of the graft entry's input vs its f64 product."""
-    import torch
-
+    """Phase 6: the port's entry step (entry.py::entry, the graft entry's
+    input) vs its f64 product."""
     import hierarchical_block_sparse_lib_tpu_torch as hbsm
-    from hierarchical_block_sparse_lib_tpu_torch.ops.spgemm import plan_spgemm_ex
-    from hierarchical_block_sparse_lib_tpu_torch.utils import generators as gen
+    from hierarchical_block_sparse_lib_tpu_torch.entry import entry
 
-    n, bw = 1024, 48
-    r, c, v = gen.banded_coo(n, bw, seed=0)
-    x = hbsm.from_coo(r, c, v, n, block_size=16)
-    x = hbsm.coarsen(x, 8)
-    x = hbsm.scale(x, 0.01)
-    x = hbsm.add(x, hbsm.eye(n, 128), beta=0.5, cap=x.cap + n // 128)
-    pc, oc, mbr, mcr = plan_spgemm_ex(x, x)
-    nb = n // 128
-    y, st = hbsm.sp2_step(
-        x, tau=1e-7, pair_cap=2 * pc, out_cap=2 * oc, target_trace=n / 2,
-        row_caps=(min(nb, 2 * mbr), min(nb, 2 * mcr)),
-    )
+    fn, (x,) = entry()
+    n = x.n_rows
+    y, st = fn(x)
     flags = [bool(getattr(st, f)) for f in (
         "pair_overflow", "out_overflow", "repack_overflow", "plan_mismatch")]
     if any(flags):
@@ -804,7 +812,7 @@ def graft_step():
     sq = float(st.trace) > n / 2
     want = dx @ dx if sq else 2 * dx - dx @ dx
     err = rel_err(hbsm.to_dense(y).double(), want)
-    print(f"[graft] sp2_step 1024^2 b=128 ({'X^2' if sq else '2X - X^2'}): "
+    print(f"[graft] entry(): sp2_step 1024^2 b=128 ({'X^2' if sq else '2X - X^2'}): "
           f"{int(st.n_block_pairs)} pairs, {int(st.nnz_blocks)} blocks kept, "
           f"vs f64 rel err {err:.3e}")
     if err > 1e-5:
@@ -1660,8 +1668,10 @@ def b4_full(card):
         with matmul_precision("highest", D.device):
             torch.matmul(D, D)
 
+    # Median of 3 after 1 warm-up: the two dense anchors take about 1.3 s a
+    # call, and 7 after 2 would cost the script some 30 s more.
     times = in_turns({"spgemm_colslab": lambda: hbsm.spgemm_colslab(A, A, plan=plan),
-                      "dense slab-wise": slabwise, "dense whole": whole})
+                      "dense slab-wise": slabwise, "dense whole": whole}, warmup=1, reps=3)
     del D
     torch.cuda.empty_cache()
     flops = 2 * 128**3 * plan.total_pairs
@@ -1672,7 +1682,7 @@ def b4_full(card):
     call = statistics.median(times["spgemm_colslab"])
     dense_whole = statistics.median(times["dense whole"])
     dense_slab = statistics.median(times["dense slab-wise"])
-    print(f"[time] {card}: B4full, CUDA events, median of 7 after 2 warm-up calls, in order "
+    print(f"[time] {card}: B4full, CUDA events, median of 3 after 1 warm-up call, in order "
           f"then reversed")
     for name, (t1, t2) in times.items():
         print(f"[time]   {name:15s} {t1:.1f} / {t2:.1f} ms"
@@ -2510,6 +2520,433 @@ def micro_path(card, fine_ns_per_pair):
     return entries, got
 
 
+def spamm_b3(card, A):
+    """Phase 17, SpAMM at B3's input: A @ A with tau halfway between two
+    neighbouring pair-norm products near the median, on "rows" and "xla";
+    pair and block counts against plan_spamm (C++ and numpy); "rows"
+    against "xla"; the error against spamm_error_bound and an f64 product;
+    one rows_spgemm launch per call; the kernel with its skip against its
+    plain version; the planned SpAMM call beside the planned unfiltered
+    one in turns; the kernel's device time against both bounds on the
+    surviving pairs.  Returns its launches."""
+    import torch
+
+    import hierarchical_block_sparse_lib_tpu_torch as hbsm
+    from hierarchical_block_sparse_lib_tpu_torch.kernels import pallas_gemm_rows as rows
+    from hierarchical_block_sparse_lib_tpu_torch.ops.norms import squared_threshold
+    from hierarchical_block_sparse_lib_tpu_torch.ops.spgemm import (
+        plan_spgemm_ex,
+        spamm_error_bound,
+    )
+    from hierarchical_block_sparse_lib_tpu_torch.runtime import native
+
+    pc, oc, mbr, mcr = plan_spgemm_ex(A, A)
+    ids = A.ids.cpu().numpy()
+    an = np.sqrt(hbsm.block_frob_squared(A).cpu().numpy())
+    prods = np.sort(np.concatenate([p for _, _, p, _, _ in native._spamm_pairs(
+        ids, an, ids, an, A.nb_cols, A.nb_cols)]))
+    tau = gap_midpoint(prods, len(prods) // 2)
+    pairs_f, out_f = hbsm.plan_spamm(A, A, tau)
+    pairs_np = native.plan_spamm_numpy(ids, an, ids, an, A.nb_cols, A.nb_cols, tau)
+    print(f"[spamm] B3 input A @ A: {pc} pairs, {oc} blocks; tau {tau:.6e} halfway between "
+          f"pair-norm products {prods[prods < tau][-1]:.6e} and {prods[prods > tau][0]:.6e}; "
+          f"plan_spamm {pairs_f} pairs ({100 * (1 - pairs_f / pc):.1f}% skipped), {out_f} blocks "
+          f"(numpy {pairs_np})")
+    if pairs_np != (pairs_f, out_f) or not 0 < pairs_f < pc:
+        raise AssertionError(f"plan_spamm {pairs_f, out_f}, numpy {pairs_np}")
+    kw = dict(pair_cap=pc, out_cap=out_f, gemm_cap=pairs_f, row_caps=(mbr, mcr))
+    torch.cuda.synchronize()
+    reset_counts()
+    Cr, ir = hbsm.spamm(A, A, tau, backend="rows", **kw)
+    torch.cuda.synchronize()
+    got = launched({"rows_spgemm": 1, "block_frob_squared": 1}, "spamm on rows at B3")
+    Cx, ix = hbsm.spamm(A, A, tau, backend="xla", **kw)
+    for name, info in (("rows", ir), ("xla", ix)):
+        if (int(info.n_block_pairs), int(info.n_out_blocks)) != (pairs_f, out_f) or flags_set(info):
+            raise AssertionError(f"spamm {name}: {int(info.n_block_pairs)} pairs, "
+                                 f"{int(info.n_out_blocks)} blocks, flags {flags_set(info)}")
+    if not torch.equal(Cr.ids, Cx.ids):
+        raise AssertionError("spamm rows and xla keep different blocks")
+    err_rx = rel_err(Cr.data, Cx.data)
+    d = hbsm.to_dense(A).double()
+    exact = d @ d
+    del d
+    err_f = float(torch.linalg.norm(hbsm.to_dense(Cr).double() - exact))
+    bound = spamm_error_bound(A, A, tau)
+    norm = float(torch.linalg.norm(exact))
+    del exact
+    print(f"[spamm] rows vs xla rel err {err_rx:.3e}; ||C - A@A||_F {err_f:.6e} <= bound "
+          f"{bound:.6e} + 1e-5 ||A@A||_F ({norm:.4e}); launches {got}")
+    if err_rx > 1e-5 or err_f > bound + 1e-5 * norm:
+        raise AssertionError(f"spamm rows vs xla {err_rx:.3e}, error {err_f:.3e} vs bound "
+                             f"{bound:.3e}")
+    n2 = hbsm.block_frob_squared(A)
+    rargs = (A.ids, A.data, A.ids, A.data, Cr.ids, A.nb_rows, A.nb_rows, A.nb_cols, out_f, mbr, mcr)
+    skip = dict(a_norms2=n2, b_norms2=n2, tau2=squared_threshold(tau))
+    k = rows.rows_spgemm(*rargs, **skip)
+    p = rows.rows_spgemm_reference(*rargs, **skip)
+    k_err, rel = float((k - p).abs().max()), rel_err(k, p)
+    print(f"[spamm] rows_spgemm with the skip vs plain at {pairs_f} of {pc} pairs: max abs err "
+          f"{k_err:.3e}, rel {rel:.3e}")
+    if rel > ROWS_TOL:
+        raise AssertionError(f"spamm rows_spgemm rel err {rel:.3e}")
+    plan_f = hbsm.make_plan(A, A, pc, tau=tau, filter_by_norm=True)
+    plan_u = hbsm.make_plan(A, A, pc)
+    times = in_turns({
+        "spamm planned": lambda: hbsm.spamm(A, A, tau, backend="rows", plan=plan_f, **kw),
+        "spgemm planned": lambda: hbsm.spgemm(A, A, pc, oc, backend="rows", plan=plan_u,
+                                              row_caps=(mbr, mcr)),
+    })
+    for name, run in (("planned spamm", lambda: hbsm.spamm(A, A, tau, backend="rows",
+                                                         plan=plan_f, **kw)),
+                      ("planned unfiltered spgemm", lambda: hbsm.spgemm(
+                          A, A, pc, oc, backend="rows", plan=plan_u, row_caps=(mbr, mcr)))):
+        device_profile(f"{name} at B3 on rows", run, 10, card, top=4)
+    dev = device_profile("rows_spgemm with the SpAMM skip at B3", lambda: rows.rows_spgemm(
+        *rargs, **skip), 10, card, top=3)
+    bnd = tile_bounds(2 * 128**3 * pairs_f, stored_bytes(A) + out_f * 128 * 128 * 4,
+                      per_call_us(dev, 10, "rows_spgemm_kernel"))
+    print(f"[time] {card}: SpAMM at B3, CUDA events, median of 7 after 2 warm-up calls, in "
+          f"order then reversed")
+    for name, (t1, t2) in times.items():
+        print(f"[time]   {name:16s} {t1:.4f} / {t2:.4f} ms")
+    print(f"[time]   rows_spgemm with the skip: "
+          + ("not measured" if bnd["device_ms"] is None else f"{1e3 * bnd['device_ms']:.1f} us")
+          + f" per launch on {pairs_f} surviving pairs: bounds FP32 {bnd['bound_fp32_ms']:.4f} ms "
+          f"({pct(bnd['share_fp32'])}), 3xTF32 {bnd['bound_route_ms']:.4f} ms "
+          f"({pct(bnd['share_route'])})")
+    return got
+
+
+def gap_midpoint(sorted_values, m):
+    """Halfway between the two neighbouring sorted values nearest index m
+    that lie more than 1e-5 (relative) apart: a threshold no value lies
+    near."""
+    v = sorted_values
+    for k in sorted(range(1, len(v)), key=lambda k: abs(k - m)):
+        if v[k] > v[k - 1] * (1 + 1e-5):
+            return float(0.5 * (v[k] + v[k - 1]))
+    raise AssertionError("no gap between the values")
+
+
+def aligned_b3(card, A):
+    """Phase 17, the aligned accumulate at B3's input: C = A @ A + D with D
+    on exactly the product's support, planned (make_plan(accum_ids=)) and
+    planless on "rows", against the generic accumulate and f64; one
+    rows_spgemm launch and no pass over the block data besides it; an
+    accumulator that misses a product block flagged; times in turns.
+    Returns its launches."""
+    import torch
+
+    import hierarchical_block_sparse_lib_tpu_torch as hbsm
+    from hierarchical_block_sparse_lib_tpu_torch.ops.spgemm import plan_spgemm_ex
+
+    pc, oc, mbr, mcr = plan_spgemm_ex(A, A)
+    kw = dict(backend="rows", row_caps=(mbr, mcr))
+    C0, _ = hbsm.spgemm(A, A, pc, oc, **kw)
+    gen = torch.Generator(device=A.device).manual_seed(17)
+    noise = torch.randn(C0.data.shape, generator=gen, device=A.device)
+    D = C0.with_data(torch.where(C0.valid_mask()[:, None, None], noise, 0))
+    del C0, noise
+    plan = hbsm.make_plan(A, A, pc, accum_ids=D.ids, out_cap=oc)
+    aligned = dict(accum=D, accum_aligned=True, **kw)
+    torch.cuda.synchronize()
+    reset_counts()
+    Ca, ia = hbsm.spgemm(A, A, pc, oc, plan=plan, **aligned)
+    torch.cuda.synchronize()
+    got = launched({"rows_spgemm": 1}, "aligned accumulate at B3")
+    Cl, il = hbsm.spgemm(A, A, pc, oc, **aligned)
+    Cg, ig = hbsm.spgemm(A, A, pc, oc, accum=D, **kw)
+    for name, info in (("planned", ia), ("planless", il), ("generic", ig)):
+        if flags_set(info):
+            raise AssertionError(f"aligned accumulate ({name}) flags {flags_set(info)}")
+    if not (torch.equal(Ca.ids, Cl.ids) and torch.equal(Ca.data, Cl.data)):
+        raise AssertionError("planned and planless aligned calls differ")
+    if not torch.equal(Ca.ids, Cg.ids):
+        raise AssertionError("aligned and generic accumulates keep different blocks")
+    d = hbsm.to_dense(A).double()
+    exact = d @ d + hbsm.to_dense(D).double()
+    del d
+    err_g, err_x = rel_err(Ca.data, Cg.data), rel_err(hbsm.to_dense(Ca).double(), exact)
+    del exact
+    print(f"[aligned] B3 input, A @ A + D on the product's {oc} blocks: planned == planless "
+          f"bitwise; vs generic rel err {err_g:.3e}, vs f64 {err_x:.3e}; launches {got}")
+    if max(err_g, err_x) > 1e-5:
+        raise AssertionError(f"aligned rel errs {err_g:.3e}, {err_x:.3e}")
+    keep = torch.ones(D.cap, dtype=torch.bool, device=D.device)
+    keep[oc // 2] = False
+    Dn = hbsm.filter_blocks(D, keep)
+    plan_n = hbsm.make_plan(A, A, pc, accum_ids=Dn.ids, out_cap=oc)
+    flagged = [bool(hbsm.spgemm(A, A, pc, oc, plan=p, **dict(aligned, accum=Dn))[1].plan_mismatch)
+               for p in (plan_n, None)]
+    print(f"[aligned] an accumulator missing one product block: plan_mismatch planned "
+          f"{flagged[0]}, planless {flagged[1]}")
+    if not all(flagged):
+        raise AssertionError(f"a product block outside the accumulator was not flagged: {flagged}")
+    # The gather-add a generic accumulate runs reads and writes the block
+    # data; any such pass takes at least one read of the accumulator at
+    # the HBM rate.
+    floor_us = stored_bytes(D) / 3.35e12 * 1e6
+    big = {}
+    for name, run in (("aligned", lambda: hbsm.spgemm(A, A, pc, oc, plan=plan, **aligned)),
+                      ("generic", lambda: hbsm.spgemm(A, A, pc, oc, plan=plan, accum=D, **kw))):
+        dev = device_profile(f"{name} accumulate at B3 (planned)", run, 10, card, top=6)
+        big[name] = sorted((t / n, k) for k, (t, n) in dev.items()
+                           if "rows_spgemm" not in k and n)[-1:] if dev else None
+    print(f"[aligned] longest launch besides rows_spgemm: aligned {big['aligned']}, generic "
+          f"{big['generic']} us; one read of the accumulator takes {floor_us:.1f} us")
+    if big["aligned"] and big["aligned"][0][0] >= floor_us:
+        raise AssertionError(f"the aligned call passes over block data: {big['aligned']}")
+    times = in_turns({
+        "aligned planned": lambda: hbsm.spgemm(A, A, pc, oc, plan=plan, **aligned),
+        "generic planned": lambda: hbsm.spgemm(A, A, pc, oc, plan=plan, accum=D, **kw),
+    })
+    print(f"[time] {card}: accumulate at B3, CUDA events, median of 7 after 2 warm-up calls, "
+          f"in order then reversed")
+    for name, (t1, t2) in times.items():
+        print(f"[time]   {name:16s} {t1:.4f} / {t2:.4f} ms")
+    return got
+
+
+def distinct_outputs(plan) -> int:
+    """A plan's distinct output (or union) blocks."""
+    import hierarchical_block_sparse_lib_tpu_torch as hbsm
+    from hierarchical_block_sparse_lib_tpu_torch.core.block_matrix import first_of_run
+
+    if plan.n_unique is not None:
+        return int(plan.n_unique)
+    return int((first_of_run(plan.c_id) & (plan.c_id != hbsm.SENTINEL)).sum())
+
+
+def tight_caps(mul_plans, extra_out=()) -> tuple:
+    """(pair_cap, out_cap) of a captured trajectory: the most surviving
+    pairs of any of its products, and the most output blocks of any
+    product, union or add (`extra_out`)."""
+    return (max(int(p.total) for p in mul_plans),
+            max([distinct_outputs(p) for p in mul_plans] + list(extra_out)))
+
+
+def run_model(card, name, unplanned, planned, want_launches):
+    """Launch counts around one unplanned and one planned call (each must
+    be `want_launches`), planned == unplanned bitwise, no flag; the call
+    time (CUDA events, median of 7 after 2 warm-ups) and a profile of the
+    planned call.  Returns (result, launches of both calls)."""
+    import torch
+
+    total = {}
+    out = []
+    for label, run in (("unplanned", unplanned), ("planned", planned)):
+        torch.cuda.synchronize()
+        reset_counts()
+        res = run()
+        torch.cuda.synchronize()
+        got = launched(want_launches, f"{name} ({label})")
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+        if bool(res[2]):
+            raise AssertionError(f"{name} ({label}) overflow or plan drift flagged")
+        out.append(res)
+    (xu, pu, _), (xp, pp, _) = out
+    if not (torch.equal(xu.ids, xp.ids) and torch.equal(xu.data, xp.data)) or int(pu) != int(pp):
+        raise AssertionError(f"{name}: planned and unplanned differ")
+    times = {label: cuda_time_ms(run)[0] for label, run in (("unplanned", unplanned),
+                                                             ("planned", planned))}
+    print(f"[models] {name}: {int(pu)} block pairs; planned == unplanned bitwise; launches per "
+          f"call {want_launches}; {card}: call unplanned {times['unplanned']:.3f} ms, planned "
+          f"{times['planned']:.3f} ms (CUDA events, median of 7 after 2 warm-ups)")
+    device_profile(f"planned {name}", planned, 3, card, top=6)
+    return xp, total
+
+
+def models_b3(card, A):
+    """Phase 17, the three model drivers at B3's size (4096^2, b = 128),
+    each unplanned, then planned (bitwise equal), against an f64 oracle:
+    polynomial (the pair-stream kernel: no row caps), chebyshev_apply
+    with gershgorin_bound's scaling and Newton-Schulz (both on the
+    row-panel kernel).  The caps are the trajectories' own, read from a
+    plan walk at the dense bounds.  Returns the launches."""
+    import torch
+
+    import hierarchical_block_sparse_lib_tpu_torch as hbsm
+    from hierarchical_block_sparse_lib_tpu_torch import models
+
+    n, b, tau, nb = A.n_rows, A.block_size, 1e-6, A.nb_rows
+    loose = (nb**3, nb * nb)
+    launches = {}
+
+    def add(got):
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+
+    # Horner.
+    coeffs = [0.5, -1.0, 0.25, 2.0]
+    pc, oc = tight_caps(models.plan_polynomial(A, coeffs, tau, *loose).mul_plans)
+    hp = models.plan_polynomial(A, coeffs, tau, pc, oc)
+    steps = len(coeffs) - 1
+    P, got = run_model(
+        card, f"polynomial (caps {pc}, {oc})",
+        lambda: models.polynomial(A, coeffs, tau, pc, oc),
+        lambda: models.polynomial(A, coeffs, tau, pc, oc, plans=hp),
+        {"gather_gemm_accumulate_stream": steps, "norms_and_keep": steps})
+    add(got)
+    d = hbsm.to_dense(A).double()
+    eye = torch.eye(n, dtype=torch.float64, device=d.device)
+    want = 0.5 * eye - d + 0.25 * (d @ d) + 2.0 * (d @ d @ d)
+    err = rel_err(hbsm.to_dense(P).double(), want)
+    print(f"[models] polynomial [0.5, -1, 0.25, 2] at tau {tau}: vs f64 dense Horner rel err "
+          f"{err:.3e} (to max)")
+    if err > 1e-5:
+        raise AssertionError(f"polynomial rel err {err:.3e}")
+    del P, want
+
+    # Chebyshev: H = A / gershgorin_bound(A).
+    g = float(hbsm.gershgorin_bound(A))
+    g64 = float(d.abs().sum(1).max())
+    print(f"[models] gershgorin_bound {g:.8f}, f64 row sums {g64:.8f} (rel {abs(g / g64 - 1):.2e})")
+    if abs(g / g64 - 1) > 1e-6:
+        raise AssertionError("gershgorin_bound differs from the f64 row sums")
+    H = hbsm.scale(A, 1.0 / g)
+    fermi = lambda x: 1.0 / (1.0 + np.exp(6.0 * x))  # noqa: E731
+    c = models.chebyshev_coeffs(fermi, 24)
+    rc = (nb, nb)
+    cp = models.plan_chebyshev(H, len(c), tau, *loose, row_caps=rc)
+    pc, oc = tight_caps(cp.mul_plans, [int(p.nnz) for p in cp.add_plans])
+    cp = models.plan_chebyshev(H, len(c), tau, pc, oc, row_caps=rc)
+    terms = len(c) - 2
+    F, got = run_model(
+        card, f"chebyshev_apply, 25 terms (caps {pc}, {oc})",
+        lambda: models.chebyshev_apply(H, c, tau, pc, oc, row_caps=rc),
+        lambda: models.chebyshev_apply(H, c, tau, pc, oc, row_caps=rc, plans=cp),
+        {"rows_spgemm": terms, "norms_and_keep": terms})
+    add(got)
+    w, V = torch.linalg.eigh(hbsm.to_dense(H).double())
+    want = (V * torch.from_numpy(fermi(w.cpu().numpy())).to(V.device)) @ V.T
+    err = float((hbsm.to_dense(F).double() - want).abs().max())
+    print(f"[models] chebyshev Fermi (beta 6), spectrum [{float(w[0]):.4f}, {float(w[-1]):.4f}]: "
+          f"vs f64 eigendecomposition max abs err {err:.3e}")
+    if err >= 1e-4:
+        raise AssertionError(f"chebyshev max abs err {err:.3e}")
+    del F, want, V, H
+
+    # Newton-Schulz on S = I + a symmetric band (tests/test_models.py's
+    # construction at 4096^2), scaled to spectrum [0.5, 1.5].
+    rng = np.random.default_rng(4)
+    m = torch.zeros((n, n), dtype=torch.float64, device=d.device)
+    for k in range(1, 4):
+        v = torch.from_numpy(rng.standard_normal(n - k) * 0.05).to(d.device)
+        m += torch.diag(v, k) + torch.diag(v, -k)
+    lam_m = torch.linalg.eigvalsh(m)
+    scale = 0.5 / float(lam_m.abs().max())
+    S_d = (eye + scale * m).float()
+    S = hbsm.from_dense(S_d, block_size=b)
+    lam = 1 + scale * lam_m
+    theta = 1.1 * float(lam[-1])
+    cap_plans = models.plan_inv_sqrt(S, theta, 25, tau, *loose, row_caps=rc)
+    pc, oc = tight_caps(cap_plans.p_zy + cap_plans.p_t + cap_plans.p_z2)
+    nsp = models.plan_inv_sqrt(S, theta, 25, tau, pc, oc, row_caps=rc)
+    Z, got = run_model(
+        card, f"inv_sqrt_newton_schulz, 25 steps (caps {pc}, {oc})",
+        lambda: models.inv_sqrt_newton_schulz(S, theta, 25, tau, pc, oc, row_caps=rc),
+        lambda: models.inv_sqrt_newton_schulz(S, theta, 25, tau, pc, oc, row_caps=rc,
+                                              plans=nsp),
+        {"rows_spgemm": 75, "norms_and_keep": 25})
+    add(got)
+    zd = hbsm.to_dense(Z).double()
+    r = zd.T @ S_d.double() @ zd - eye
+    err, fro = float(r.abs().max()), float(torch.linalg.norm(r))
+    print(f"[models] Newton-Schulz S = I + band (spectrum [{float(lam[0]):.4f}, "
+          f"{float(lam[-1]):.4f}], theta {theta:.4f}, {int(Z.nnz)} blocks kept): "
+          f"max|Z^T S Z - I| {err:.3e}, ||Z^T S Z - I||_F {fro:.3e}")
+    if err >= 1e-4:
+        raise AssertionError(f"Newton-Schulz max abs err {err:.3e}")
+    return launches
+
+
+def subtree_b3(A, prof):
+    """Phase 17, subtree truncation at level 3 on B3's step-1 product
+    against a host f64 computation of the level-3 node norms (same kept
+    ids), and frob_norm and nnz_blocks against the host.  Returns its
+    launches."""
+    import torch
+
+    import hierarchical_block_sparse_lib_tpu_torch as hbsm
+
+    n, tau, level = A.n_rows, 1e-6, 3
+    x1, _ = hbsm.purify_scan(A, 1, tau, target_trace=n / 2, **prof.kwargs())
+    A2, info = hbsm.spgemm(x1, x1, prof.pair_cap, prof.out_cap, row_caps=prof.row_caps)
+    ids = A2.ids.cpu().numpy().astype(np.int64)
+    valid = ids != hbsm.SENTINEL
+    blocks2 = A2.data.double().square().sum((1, 2)).cpu().numpy()
+    depth = int(A2.nb_rows - 1).bit_length()
+    shift = depth - level
+    node = (ids // A2.nb_cols >> shift) * 2**level + (ids % A2.nb_cols >> shift)
+    node_norm = {}
+    for k, v in zip(node[valid], blocks2[valid]):
+        node_norm[k] = node_norm.get(k, 0.0) + v
+    norms = np.sort(np.sqrt(np.array(list(node_norm.values()))))
+    tau_s = gap_midpoint(norms, len(norms) // 2)
+    want = ids[valid & np.array([node_norm.get(k, 0.0) ** 0.5 > tau_s for k in node])]
+    torch.cuda.synchronize()
+    reset_counts()
+    T = hbsm.truncate(A2, tau_s, subtree_level=level)
+    torch.cuda.synchronize()
+    got = launched({"block_frob_squared": 1}, "subtree truncate")
+    kept = T.ids.cpu().numpy()[: int(T.nnz)]
+    print(f"[subtree] B3 step-1 product ({int(info.n_block_pairs)} pairs, {int(A2.nnz)} blocks): "
+          f"{len(node_norm)} level-{level} nodes; tau {tau_s:.6e}; kept {len(kept)} blocks, "
+          f"host f64 {len(want)}, ids equal {np.array_equal(kept, want)}; launches {got}")
+    if not np.array_equal(kept, want):
+        raise AssertionError("subtree truncation keeps other blocks than the host")
+    fro, fro64 = float(hbsm.frob_norm(A2)), float(np.sqrt(blocks2.sum()))
+    print(f"[subtree] frob_norm {fro:.8f} vs host {fro64:.8f}; nnz_blocks "
+          f"{int(hbsm.nnz_blocks(A2))} vs host {int(valid.sum())}")
+    if abs(fro / fro64 - 1) > 1e-6 or int(hbsm.nnz_blocks(A2)) != int(valid.sum()):
+        raise AssertionError("frob_norm or nnz_blocks differ from the host")
+    return got
+
+
+def demo_1024():
+    """Phase 17, scripts/purification_demo.py at n = 1024 in this process:
+    within its own tolerance of the spectral projector.  Returns its
+    launches."""
+    import torch
+
+    from hierarchical_block_sparse_lib_tpu_torch.scripts import purification_demo
+
+    torch.cuda.synchronize()
+    reset_counts()
+    err = purification_demo.main(["1024"])
+    torch.cuda.synchronize()
+    got = {k: v for k, v in counts(KERNELS).items() if v}
+    print(f"[demo] purification_demo 1024: rel err {err:.3e} (tolerance "
+          f"{purification_demo.TOL:.0e}); launches {got}")
+    if not err <= purification_demo.TOL:
+        raise AssertionError(f"purification demo rel err {err:.3e}")
+    return got
+
+
+def models_phase(card, b3):
+    """Phase 17: SpAMM, the aligned accumulate, the three model drivers and
+    subtree truncation at B3's size, then the demo.  Returns the launches
+    of the kernels on its paths."""
+    import torch
+
+    t0 = time.perf_counter()
+    A, prof, _, _ = b3
+    total, secs = {}, {}
+    parts = (("spamm", lambda: spamm_b3(card, A)), ("aligned", lambda: aligned_b3(card, A)),
+             ("models", lambda: models_b3(card, A)), ("subtree", lambda: subtree_b3(A, prof)),
+             ("demo", demo_1024))
+    for name, part in parts:
+        t1 = time.perf_counter()
+        for k, v in part().items():
+            total[k] = total.get(k, 0) + v
+        torch.cuda.empty_cache()
+        secs[name] = round(time.perf_counter() - t1, 1)
+    print(f"[phase17] {time.perf_counter() - t0:.1f} s ({secs}); launches {total}")
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -2660,7 +3097,13 @@ def main() -> int:
 
     # Phase 16: the class at B1 and B2, syrk and symmetric SP2 at B3.
     p16 = surface_phase(card, b1, b2, b3)
-    del b1, b2, b3
+    del b1, b2
+    torch.cuda.empty_cache()
+
+    # Phase 17: SpAMM, the aligned accumulate, the model drivers and
+    # subtree truncation at B3's size, and the purification demo.
+    p17 = models_phase(card, b3)
+    del b3
     torch.cuda.empty_cache()
 
     # Phase 14: the micro kernels at small shapes, then the measurement
@@ -2683,12 +3126,15 @@ def main() -> int:
     launches["rows_spgemm"] += b4_rows
     for name, n16 in p16.items():
         launches[name] += n16
+    for name, n17 in p17.items():
+        launches[name] += n17
     print(f"[launches] gather_gemm_accumulate_stream: {b2t_launches} on B2-tile128 + "
           f"{purify_launches} in purify on B3; rows_spgemm: {b3_launches['rows_spgemm']} on "
           f"B3 + {b4_rows} on B4 (phase 15) + {p16['rows_spgemm']} with triu (phase 16: syrk "
           f"and the symmetric B3 path); norms_and_keep: {b3_launches['norms_and_keep']} on B3 "
           f"+ {p16['norms_and_keep']} (phase 16); fine_spgemm: {fine_launches} on B2 + "
-          f"{p16['fine_spgemm']} through the class (phase 16)")
+          f"{p16['fine_spgemm']} through the class (phase 16); phase 17 (SpAMM, aligned, "
+          f"models, subtree, demo): {p17}")
     print(f"[time] script wall {time.perf_counter() - script_t0:.1f} s")
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel never launched on its path: {launches}")

@@ -26,7 +26,15 @@ with ``Params``, COO export (``to_coo``, ``to_coo_chunks``,
 ``get_values``) and npz files (``save``/``load``, the JAX package's
 format); and the symmetric product: ``syrk``/``plan_syrk`` (upper-triangle
 products on the row-panel kernel's ``triu`` skip), ``triu``/``tril``/
-``filter_blocks`` and symmetric SP2 (``symmetric=True``).
+``filter_blocks`` and symmetric SP2 (``symmetric=True``); the
+error-controlled multiply ``spamm`` (``plan_spamm``; the row-panel
+kernel's norm skip), the aligned accumulate, the planned add
+(``make_add_plan``/``add_planned``), the model drivers ``polynomial``,
+``chebyshev_apply`` and ``inv_sqrt_newton_schulz`` with their plans
+(``models``), and the norms ``frob_norm``, ``nnz_blocks``,
+``gershgorin_bound`` and ``subtree_frob_squared`` with subtree
+``truncate``.  Of the JAX package's single-chip surface only its
+distribution (``parallel/``) is not ported.
 Constructors build on the CUDA card unless given another ``device``.
 """
 
@@ -46,9 +54,12 @@ from hierarchical_block_sparse_lib_tpu_torch.core.assembly import (
     to_dense,
 )
 from hierarchical_block_sparse_lib_tpu_torch.ops.basic import (
+    AddPlan,
     add,
+    add_planned,
     add_with_info,
     filter_blocks,
+    make_add_plan,
     scale,
     transpose,
     tril,
@@ -56,7 +67,11 @@ from hierarchical_block_sparse_lib_tpu_torch.ops.basic import (
 )
 from hierarchical_block_sparse_lib_tpu_torch.ops.norms import (
     block_frob_squared,
+    frob_norm,
     frob_squared,
+    gershgorin_bound,
+    nnz_blocks,
+    subtree_frob_squared,
     trace,
 )
 from hierarchical_block_sparse_lib_tpu_torch.ops.truncate import truncate
@@ -64,7 +79,9 @@ from hierarchical_block_sparse_lib_tpu_torch.ops.spgemm import (
     MultiplyInfo,
     SymbolicPlan,
     make_plan,
+    plan_spamm,
     plan_syrk,
+    spamm,
     spgemm,
     spgemm_symbolic,
 )
@@ -145,18 +162,27 @@ __all__ = [
     "empty",
     "eye",
     "add",
+    "AddPlan",
+    "add_planned",
     "add_with_info",
+    "make_add_plan",
     "scale",
     "transpose",
     "filter_blocks",
     "triu",
     "tril",
     "frob_squared",
+    "frob_norm",
     "block_frob_squared",
     "trace",
+    "nnz_blocks",
+    "subtree_frob_squared",
+    "gershgorin_bound",
     "truncate",
     "spgemm",
     "spgemm_symbolic",
+    "spamm",
+    "plan_spamm",
     "make_plan",
     "SymbolicPlan",
     "MultiplyInfo",

@@ -1,5 +1,6 @@
-"""Workload drivers built on the core ops (port of ``models/``): so far
-density-matrix purification (SP2)."""
+"""Workload drivers built on the core ops (port of ``models/``):
+density-matrix purification (SP2), matrix polynomials (Horner), the
+Chebyshev expansion and the Newton-Schulz inverse square root."""
 
 from hierarchical_block_sparse_lib_tpu_torch.models.purification import (
     CapacityProfile,
@@ -12,6 +13,22 @@ from hierarchical_block_sparse_lib_tpu_torch.models.purification import (
     purify_scan,
     sp2_step,
 )
+from hierarchical_block_sparse_lib_tpu_torch.models.polynomial import (
+    HornerPlans,
+    plan_polynomial,
+    polynomial,
+)
+from hierarchical_block_sparse_lib_tpu_torch.models.inverse_factor import (
+    NSPlans,
+    inv_sqrt_newton_schulz,
+    plan_inv_sqrt,
+)
+from hierarchical_block_sparse_lib_tpu_torch.models.chebyshev import (
+    ChebPlans,
+    chebyshev_apply,
+    chebyshev_coeffs,
+    plan_chebyshev,
+)
 
 __all__ = [
     "CapacityProfile",
@@ -23,4 +40,14 @@ __all__ = [
     "purify",
     "purify_scan",
     "sp2_step",
+    "HornerPlans",
+    "plan_polynomial",
+    "polynomial",
+    "NSPlans",
+    "inv_sqrt_newton_schulz",
+    "plan_inv_sqrt",
+    "ChebPlans",
+    "chebyshev_apply",
+    "chebyshev_coeffs",
+    "plan_chebyshev",
 ]

@@ -1,9 +1,11 @@
-"""Add / scale / transpose, the union merge and the block-triangle
-filters (port of ``ops/basic.py``): the structural-union tree walk
-becomes a merge of two sorted id lists, transpose an id remap plus a
-batched axis swap, and `triu`/`tril` a stable compaction."""
+"""Add / scale / transpose, the union merge, the planned add and the
+block-triangle filters (port of ``ops/basic.py``): the structural-union
+tree walk becomes a merge of two sorted id lists, transpose an id remap
+plus a batched axis swap, and `triu`/`tril` a stable compaction."""
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 
@@ -85,6 +87,78 @@ def union_merge(c_id: torch.Tensor, acc_ids: torch.Tensor, out_cap: int):
     slot_orig = slot_orig.to(torch.int32)
     n = c_id.shape[0]
     return out_ids[:out_cap], slot_orig[:n], slot_orig[n:], n_unique
+
+
+@dataclass(frozen=True)
+class AddPlan:
+    """Precomputed union structure for `add_planned`: valid while both
+    operands keep exactly the id arrays it was built from (data may
+    change freely).  The add then costs one gather of each operand's
+    blocks and the staleness check: no sort, no structural pass."""
+
+    out_ids: torch.Tensor  # int32[cap] union ids, sorted, SENTINEL padded
+    slot_in: torch.Tensor  # int32[capA+capB] input row -> union slot
+    nnz: torch.Tensor  # int32[] union size (before the clamp: > cap drops)
+    a_ids: torch.Tensor  # int32[capA] the operand ids the plan was built for
+    b_ids: torch.Tensor  # int32[capB]
+
+
+def make_add_plan(a_ids: torch.Tensor, b_ids: torch.Tensor, cap: int) -> AddPlan:
+    """Union-structure plan for ``add_planned`` (one argsort, on the ids'
+    device)."""
+    out_ids, seg, pos_acc, nnz = union_merge(a_ids, b_ids, cap)
+    return AddPlan(
+        out_ids=out_ids, slot_in=torch.cat([seg, pos_acc]), nnz=nnz,
+        a_ids=a_ids, b_ids=b_ids,
+    )
+
+
+def gather_slots(slot: torch.Tensor, m: BlockMatrix, cap: int, factor=1.0) -> torch.Tensor:
+    """factor * m's block for every one of `cap` union slots, zero where m
+    has none; `slot` maps m's rows to union slots (>= cap: none).  The
+    slot map is inverted by a small int scatter (slot `cap` is the trash
+    row), then m's blocks move by one gather: no float scatter-add."""
+    src = torch.full((cap + 1,), m.cap, dtype=torch.int64, device=m.device)
+    src[slot.long().clamp(max=cap)] = torch.arange(m.cap, device=m.device)
+    src = src[:cap]
+    blocks = m.data[src.clamp(max=m.cap - 1)]
+    if not (isinstance(factor, (int, float)) and float(factor) == 1.0):
+        blocks = blocks * _scalar(factor, blocks)
+    return torch.where((src < m.cap)[:, None, None], blocks, 0)
+
+
+def add_planned(a: BlockMatrix, b: BlockMatrix, plan: AddPlan, alpha=1.0, beta=1.0):
+    """C = alpha*A + beta*B at a precomputed union structure
+    (`make_add_plan` on these operands' exact ids).  Returns (C, overflow):
+    overflow is True when the union exceeded the plan's capacity or when
+    either operand's ids left the planned structure or hold a duplicate
+    (a stale plan puts blocks in wrong slots: never silent).
+
+    The reference scatter-adds both operands into the union; here each
+    union slot gathers its at most one block of each operand through the
+    inverted slot map, so no float accumulate runs on the device."""
+    cap = plan.out_ids.shape[0]
+    if plan.slot_in.shape[0] != a.cap + b.cap:
+        raise ValueError(
+            f"plan built for capA+capB={plan.slot_in.shape[0]}, got {a.cap}+{b.cap}"
+        )
+    mismatch = torch.zeros((), dtype=torch.bool, device=a.device)
+    for m, want in ((a, plan.a_ids), (b, plan.b_ids)):
+        if m.ids.shape != want.shape:  # a capacity change counts as drift
+            mismatch = torch.ones_like(mismatch)
+        else:
+            mismatch = mismatch | torch.any(m.ids != want)
+        # One block per slot holds only for sorted unique ids.
+        mismatch = mismatch | torch.any((m.ids[1:] == m.ids[:-1]) & m.valid_mask()[1:])
+    out_data = (
+        gather_slots(plan.slot_in[: a.cap], a, cap, alpha)
+        + gather_slots(plan.slot_in[a.cap:], b, cap, beta)
+    ).to(a.dtype)
+    c = BlockMatrix(
+        ids=plan.out_ids, data=out_data, nnz=torch.clamp(plan.nnz, max=cap),
+        n_rows=a.n_rows, n_cols=a.n_cols, block_size=a.block_size,
+    )
+    return c, (plan.nnz > cap) | mismatch
 
 
 def filter_blocks(a: BlockMatrix, keep: torch.Tensor) -> BlockMatrix:

@@ -17,9 +17,11 @@ path, which float64 takes).
 The upper-triangle enumeration (``syrk_upper``) runs on "rows" (the
 kernel's `triu` skip), "pallas" and "xla"; `plan_syrk` sizes it and
 ``make_plan(sym_mirror=True)`` plans the symmetric purification step.
-Not ported yet, and raising `NotImplementedError`: the norm filter
-(``filter_by_norm``, ROADMAP Queue 1 #4) and the aligned accumulate
-(``accum_aligned``, Queue 1 #5).
+The norm filter (``filter_by_norm``: SpAMM, `spamm`, sized by
+`plan_spamm`) runs on "rows" (the kernel's skip, fed the same norms and
+tau^2 as the symbolic phase), "pallas" and "xla"; the aligned accumulate
+(``accum_aligned``) on "rows", whose kernel starts each slot from the
+accumulator's block.
 """
 
 from __future__ import annotations
@@ -42,6 +44,10 @@ from hierarchical_block_sparse_lib_tpu_torch.kernels import (
     pallas_gemm_stream,
 )
 from hierarchical_block_sparse_lib_tpu_torch.ops import basic
+from hierarchical_block_sparse_lib_tpu_torch.ops.norms import (
+    block_frob_squared,
+    squared_threshold,
+)
 
 
 @dataclass(frozen=True)
@@ -77,14 +83,35 @@ def spgemm_symbolic(
 
     Filters drop pairs before the numeric phase; survivors sort to the
     front, so a caller may slice the lists to a tight `gemm_cap`.
-    `syrk_upper` keeps the pairs of upper-triangle outputs (block row <=
-    block column): for C = A @ A^T (b = A^T) the caller mirrors
-    C_ji = C_ij^T afterwards, about half the leaf products.  The norm
-    filter (`filter_by_norm`) is not ported yet.
+    `filter_by_norm` drops the pairs whose a-priori product bound
+    ``||A_ik||_F * ||B_kj||_F <= tau`` (SpAMM; compared squared, in f32,
+    as ``an2 * bn2 > f32(tau)^2``).  `syrk_upper` keeps the pairs of
+    upper-triangle outputs (block row <= block column): for C = A @ A^T
+    (b = A^T) the caller mirrors C_ji = C_ij^T afterwards, about half the
+    leaf products.
     """
-    if filter_by_norm:
-        raise _not_ported("the norm filter", "Queue 1 #4")
-    del tau
+    norm_filter = spamm_filter(a, b, tau) if filter_by_norm else None
+    return _symbolic(a, b, pair_cap, norm_filter, syrk_upper)
+
+
+def spamm_filter(a: BlockMatrix, b: BlockMatrix, tau):
+    """(an2, bn2, tau2) of the norm filter: the per-block squared norms of
+    each operand (one norm pass each; one for both when b is a) and tau^2
+    in f32.  One triple feeds both the symbolic phase and the row-panel
+    kernel's skip, so the two make the same decisions."""
+    an2 = block_frob_squared(a)
+    bn2 = an2 if b is a else block_frob_squared(b)
+    return an2, bn2, squared_threshold(tau)
+
+
+def _keep_by_norm(norm_filter, a_idx, b_idx) -> torch.Tensor:
+    an2, bn2, tau2 = norm_filter
+    return an2[a_idx] * bn2[b_idx] > tau2
+
+
+def _symbolic(a: BlockMatrix, b: BlockMatrix, pair_cap: int, norm_filter, syrk_upper: bool):
+    """`spgemm_symbolic` with the norm filter given as `spamm_filter`'s
+    triple (or None)."""
     dev = a.ids.device
     i32 = torch.int32
     a_valid = a.valid_mask()
@@ -115,12 +142,14 @@ def spgemm_symbolic(
     a_idx = e_c
     b_idx = torch.clamp(lo[e_c] + t, max=b.cap - 1).long()
     c_row, c_col = a_row[e_c], b_col[b_idx]
-    # Each filter masks valid_p (the norm filter of ROADMAP Queue 1 #4
-    # joins here); `total` then counts the survivors.
+    # Each filter masks valid_p; `total` then counts the survivors.
+    if norm_filter is not None:
+        valid_p = valid_p & _keep_by_norm(norm_filter, a_idx, b_idx)
     if syrk_upper:
         valid_p = valid_p & (c_row <= c_col)
     c_id = torch.where(valid_p, c_row * b.nb_cols + c_col, SENTINEL).to(i32)
-    total = valid_p.sum().to(i32) if syrk_upper else raw_total
+    filtered = norm_filter is not None or syrk_upper
+    total = valid_p.sum().to(i32) if filtered else raw_total
     order = torch.argsort(c_id, stable=True)
     return (
         a_idx[order].to(i32),
@@ -264,8 +293,19 @@ def ids_mismatch(pairs) -> torch.Tensor:
     return mism
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+def _norm_drift(plan: SymbolicPlan, norm_filter, a: BlockMatrix, b: BlockMatrix,
+                syrk_upper: bool) -> torch.Tensor:
+    """True when the operands' current norms keep another set of pairs
+    than the plan's (0-dim bool).  The symbolic phase's stable sort puts
+    the survivors first, then the dropped enumerated pairs, then the
+    padding, so the first `raw_total` plan entries are the enumeration."""
+    a_idx = plan.a_idx.long().clamp(max=a.cap - 1)  # a stale plan's may not fit
+    b_idx = plan.b_idx.long().clamp(max=b.cap - 1)
+    keep = _keep_by_norm(norm_filter, a_idx, b_idx)
+    if syrk_upper:
+        keep = keep & (a.ids[a_idx] // a.nb_cols <= b.ids[b_idx] % b.nb_cols)
+    enumerated = torch.arange(a_idx.shape[0], device=a_idx.device) < plan.raw_total
+    return torch.any(enumerated & (keep != (plan.c_id != SENTINEL)))
 
 
 def _mirror_map(c_id: torch.Tensor, out_ids: torch.Tensor, nb: int) -> dict:
@@ -538,16 +578,27 @@ def spgemm(
     (block row <= block column): the symbolic phase drops the other pairs,
     and "rows" skips them in the kernel (`triu`), so with a generic `plan`
     its lower slots hold no product.  "groups" and "fine" decline it, as
-    in the reference.  The norm filter (`filter_by_norm`, `tau`) is not
-    ported yet.
+    in the reference.
+
+    `filter_by_norm` skips the block products with ||A_ik||_F *
+    ||B_kj||_F <= `tau` (SpAMM, the reference lineage's error-controlled
+    multiply; `spamm`): the symbolic phase drops them, and "rows" skips
+    them in the kernel, fed the same norms and tau^2.  Size `gemm_cap`
+    with `plan_spamm` to run the surviving pairs only.  A `plan` built
+    with the filter is also checked against the operands' current norms:
+    a data drift that changes a keep decision sets `plan_mismatch`.
+    "groups" and "fine" decline the filter.
+
+    `accum_aligned` (with `accum`, "rows", alpha == 1 and
+    ``accum.cap == out_cap``) makes C's structure the accumulator's: the
+    kernel starts each slot from beta*accum and no union is formed, so
+    every product block must have a slot in `accum`.  A product block
+    outside it sets `plan_mismatch`: planless by a membership search,
+    with a plan (``make_plan(accum_ids=accum.ids, out_cap=)``) when the
+    plan's union differs from its accumulator ids.
     """
-    if filter_by_norm:
-        raise _not_ported("the norm filter", "Queue 1 #4")
     if (a_leaf_occ is None) != (b_leaf_occ is None):
         raise ValueError("a_leaf_occ and b_leaf_occ go together")
-    if accum_aligned:
-        raise _not_ported("the aligned accumulate", "Queue 1 #5")
-    del tau
     if transpose_a:
         a = basic.transpose(a)
     if transpose_b:
@@ -558,13 +609,34 @@ def spgemm(
             f"{b.n_rows}x{b.block_size}"
         )
     dev = a.device
+    if backend == "auto":
+        backend = resolve_backend(
+            a.block_size, a.dtype, b.nb_cols, pair_cap,
+            row_caps=row_caps, group_caps=group_caps,
+            filter_by_norm=filter_by_norm, syrk_upper=syrk_upper,
+        )
+    if accum_aligned:
+        if accum is None:
+            raise ValueError("accum_aligned requires accum")
+        if backend != "rows":
+            raise ValueError(
+                f"accum_aligned requires the rows backend (got {backend!r}); "
+                "supply row_caps that fit"
+            )
+        if not alpha_is_one_static(alpha):
+            raise ValueError("accum_aligned supports alpha == 1 only")
+        if accum.cap != out_cap:
+            raise ValueError(
+                f"accum_aligned needs accum.cap == out_cap ({accum.cap} != {out_cap})"
+            )
+    norm_filter = spamm_filter(a, b, tau) if filter_by_norm else None
     # A stale plan gathers wrong pairs: compare the id structure it was
     # built for (a capacity change counts as drift).
     plan_mismatch = torch.zeros((), dtype=torch.bool, device=dev)
 
     if plan is None:
-        a_idx, b_idx, c_id, total, raw_total = spgemm_symbolic(
-            a, b, pair_cap, syrk_upper=syrk_upper)
+        a_idx, b_idx, c_id, total, raw_total = _symbolic(
+            a, b, pair_cap, norm_filter, syrk_upper)
     else:
         if plan.a_idx.shape[0] != pair_cap:
             raise ValueError(
@@ -574,6 +646,8 @@ def spgemm(
         total, raw_total = plan.total, plan.raw_total
         if plan.a_ids is not None:
             plan_mismatch = ids_mismatch(((a.ids, plan.a_ids), (b.ids, plan.b_ids)))
+        if norm_filter is not None:
+            plan_mismatch = plan_mismatch | _norm_drift(plan, norm_filter, a, b, syrk_upper)
     gemm_cap = pair_cap if gemm_cap is None else min(gemm_cap, pair_cap)
     if gemm_cap < pair_cap:
         # Survivors sort before SENTINEL padding.
@@ -584,7 +658,7 @@ def spgemm(
         n_leaf = torch.full((), -1, dtype=torch.int32, device=dev)
 
     valid_p = c_id != SENTINEL
-    pos_acc = None
+    pos_acc = seg = None
     if accum is None:
         first = first_of_run(c_id)
         seg = torch.where(valid_p, torch.cumsum(first, 0) - 1, out_cap)
@@ -597,7 +671,21 @@ def spgemm(
             raise ValueError("accum shape mismatch")
         if accum.block_size != a.block_size:
             raise ValueError("accum block_size mismatch")
-        if plan is not None and plan.out_ids is not None:
+        if accum_aligned:
+            # C's structure is the accumulator's: every product block must
+            # land in one of its slots, loudly.
+            out_ids_pre, n_unique = accum.ids, accum.nnz
+            if plan is not None and plan.acc_ids is not None:
+                # The planned union equals the accumulator ids exactly when
+                # the product support lies inside them.
+                plan_mismatch = plan_mismatch | ids_mismatch(
+                    ((accum.ids, plan.acc_ids), (plan.out_ids, plan.acc_ids)))
+            else:
+                pos = torch.searchsorted(accum.ids, c_id, out_int32=True)
+                member = accum.ids[pos.clamp(max=out_cap - 1).long()] == c_id
+                plan_mismatch = plan_mismatch | torch.any(valid_p & ~member) | torch.any(
+                    (accum.ids[1:] == accum.ids[:-1]) & accum.valid_mask()[1:])
+        elif plan is not None and plan.out_ids is not None:
             if plan.out_ids.shape[0] != out_cap:
                 raise ValueError(
                     f"plan union built for out_cap={plan.out_ids.shape[0]}, "
@@ -612,12 +700,6 @@ def spgemm(
             out_ids_pre, seg, pos_acc, n_unique = basic.union_merge(
                 c_id, acc_ids, out_cap
             )
-    if backend == "auto":
-        backend = resolve_backend(
-            a.block_size, a.dtype, b.nb_cols, pair_cap,
-            row_caps=row_caps, group_caps=group_caps,
-            filter_by_norm=filter_by_norm, syrk_upper=syrk_upper,
-        )
     acc_dtype = torch.promote_types(a.dtype, torch.float32)
     if backend == "groups":
         if group_caps is None:
@@ -645,8 +727,18 @@ def spgemm(
             a.nb_rows, b.nb_rows, b.nb_cols, out_cap, row_caps[0], row_caps[1],
         )
         if backend == "rows":
+            rkw = {}
+            if norm_filter is not None:
+                rkw = dict(zip(("a_norms2", "b_norms2", "tau2"), norm_filter))
+            if accum_aligned:
+                rkw["acc_data"] = accum.data
+                if not alpha_is_one_static(beta):
+                    # The kernel accumulates onto the block it loads:
+                    # pre-scale the accumulator by beta in one pass.
+                    acc = accum.data.to(acc_dtype)
+                    rkw["acc_data"] = (acc * basic._scalar(beta, acc)).to(torch.float32)
             out_data = pallas_gemm_rows.rows_spgemm(
-                *kargs, precision=precision, triu=syrk_upper
+                *kargs, precision=precision, triu=syrk_upper, **rkw
             )
         elif filter_by_norm or syrk_upper:
             raise ValueError(
@@ -684,7 +776,7 @@ def spgemm(
         out_data = torch.where(
             slot_valid[:, None, None], out_data * basic._scalar(alpha, out_data), 0
         ).to(a.dtype)
-    if accum is not None:
+    if accum is not None and not accum_aligned:
         # Fused beta-accumulate as a gather-add: invert pos_acc with a small
         # int scatter, gather accum's block per union slot (absent -> 0)
         # and add.  pos_acc maps each valid accum slot to a unique union
@@ -692,14 +784,7 @@ def spgemm(
         plan_mismatch = plan_mismatch | torch.any(
             (accum.ids[1:] == accum.ids[:-1]) & accum.valid_mask()[1:]
         )
-        acc_cap = accum.cap
-        acc_src = torch.full((out_cap + 1,), acc_cap, dtype=torch.int64, device=dev)
-        acc_src[pos_acc.long().clamp(max=out_cap)] = torch.arange(acc_cap, device=dev)
-        acc_src = acc_src[:out_cap]
-        acc_blocks = torch.where(
-            (acc_src < acc_cap)[:, None, None],
-            accum.data[acc_src.clamp(max=acc_cap - 1)], 0,
-        )
+        acc_blocks = basic.gather_slots(pos_acc, accum, out_cap)
         out_data = out_data.to(acc_dtype)
         out_data = (out_data + basic._scalar(beta, out_data) * acc_blocks.to(acc_dtype)).to(a.dtype)
     c = BlockMatrix(
@@ -716,6 +801,57 @@ def spgemm(
         n_leaf_multiplies=n_leaf,
     )
     return c, info
+
+
+def _host_norms(m: BlockMatrix) -> np.ndarray:
+    """Per-block Frobenius norms on the host (f32, from the device's
+    squared norms)."""
+    return np.sqrt(block_frob_squared(m).cpu().numpy())
+
+
+def plan_spamm(a: BlockMatrix, b: BlockMatrix, tau: float):
+    """Host-side exact plan of the norm-filtered multiply: (n_surviving
+    pairs, n_out_blocks) when the pairs with ||A_ik|| * ||B_kj|| <= tau
+    are skipped."""
+    from hierarchical_block_sparse_lib_tpu_torch.runtime import native
+
+    return native.plan_spamm(
+        a.ids.cpu().numpy(), _host_norms(a), b.ids.cpu().numpy(), _host_norms(b),
+        a.nb_cols, b.nb_rows, b.nb_cols, tau,
+    )
+
+
+def spamm_error_bound(a: BlockMatrix, b: BlockMatrix, tau: float) -> float:
+    """A-priori certificate of the norm-filtered multiply:
+    ||A@B - spamm(A, B, tau)||_F <= this bound (the sum of the skipped
+    pairs' norm products).  Host-side, exact for the given structure."""
+    from hierarchical_block_sparse_lib_tpu_torch.runtime import native
+
+    return native.spamm_error_bound(
+        a.ids.cpu().numpy(), _host_norms(a), b.ids.cpu().numpy(), _host_norms(b),
+        a.nb_cols, b.nb_cols, tau,
+    )
+
+
+def spamm(
+    a: BlockMatrix,
+    b: BlockMatrix,
+    tau,
+    pair_cap: int,
+    out_cap: int,
+    gemm_cap: int | None = None,
+    **kw,
+):
+    """Error-controlled approximate multiply C ~= A @ B, skipping the block
+    products with ||A_ik||_F * ||B_kj||_F <= tau (the reference lineage's
+    SpAMM for purification).  ||C - A@B||_F is at most
+    `spamm_error_bound`.  Size `pair_cap` with `plan_spgemm` (the
+    unfiltered enumeration) and `gemm_cap`/`out_cap` with `plan_spamm`
+    (the surviving products); other keywords go to `spgemm`."""
+    return spgemm(
+        a, b, pair_cap=pair_cap, out_cap=out_cap, tau=tau,
+        filter_by_norm=True, gemm_cap=gemm_cap, **kw,
+    )
 
 
 def pair_bound(a: BlockMatrix, b: BlockMatrix) -> int:

@@ -1,14 +1,13 @@
-"""Norm-based block truncation (port of ``ops/truncate.py``, leaf mode):
-per-block norm -> mask -> stable compaction.  Capacity is unchanged
-unless `cap` is given; freed slots become SENTINEL/zero padding.  At
-b % 128 == 0 with f32 or bf16 data the norm and the compare are one
-kernel pass (``kernels/pallas_norms.py::norms_and_keep``)."""
+"""Norm-based block truncation (port of ``ops/truncate.py``): per-block
+or per-subtree norm -> mask -> stable compaction.  Capacity is unchanged
+unless `cap` is given; freed slots become SENTINEL/zero padding.  In leaf
+mode at b % 128 == 0 with f32 or bf16 data the norm and the compare are
+one kernel pass (``kernels/pallas_norms.py::norms_and_keep``)."""
 
 from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
 import torch
 
 from hierarchical_block_sparse_lib_tpu_torch.core.block_matrix import (
@@ -16,7 +15,11 @@ from hierarchical_block_sparse_lib_tpu_torch.core.block_matrix import (
     BlockMatrix,
 )
 from hierarchical_block_sparse_lib_tpu_torch.kernels import pallas_norms
-from hierarchical_block_sparse_lib_tpu_torch.ops.norms import block_frob_squared
+from hierarchical_block_sparse_lib_tpu_torch.ops.norms import (
+    block_frob_squared,
+    squared_threshold,
+    subtree_node_norms2,
+)
 
 
 def truncate(
@@ -27,27 +30,25 @@ def truncate(
 ):
     """Drop blocks with frob norm <= tau; compact storage.
 
+    With `subtree_level` set, drops whole quadtree subtrees at that level
+    whose aggregate norm is <= tau (the reference's hierarchical pruning);
+    the default is leaf-block truncation.
+
     With `cap` set, the compaction writes straight into `cap`-sized
     storage and the return value becomes ``(matrix, kept)``, where
     `kept` is the survivor count before the clamp: ``kept > cap`` means
-    trailing (highest-id) survivors were dropped.  Subtree truncation
-    (`subtree_level`) is not ported yet (ROADMAP Queue 1 #7).
+    trailing (highest-id) survivors were dropped.
     """
+    # Threshold at the norm's accumulation type; a number is squared on
+    # the host, so no scalar is copied to the device.
+    tdt = torch.promote_types(a.dtype, torch.float32)
     if subtree_level is not None:
-        raise NotImplementedError("subtree truncation is not ported yet (ROADMAP Queue 1 #7)")
-    if pallas_norms.supported(a.block_size, a.dtype):
+        keys, node_norms2 = subtree_node_norms2(a, subtree_level)
+        keep = node_norms2[keys.long()] > squared_threshold(tau, tdt)
+    elif pallas_norms.supported(a.block_size, a.dtype):
         _, keep = pallas_norms.norms_and_keep(a.data, tau)
     else:
-        # Threshold at the norm's accumulation type; a number is squared
-        # on the host, so no scalar is copied to the device.
-        tdt = torch.promote_types(a.dtype, torch.float32)
-        if isinstance(tau, torch.Tensor):
-            tau2 = torch.square(tau.to(tdt))
-        elif tdt == torch.float32:
-            tau2 = float(np.float32(tau) * np.float32(tau))
-        else:
-            tau2 = float(tau) ** 2
-        keep = block_frob_squared(a) > tau2
+        keep = block_frob_squared(a) > squared_threshold(tau, tdt)
     keep = keep & a.valid_mask()
     # Stable compaction without a sort (ids are sorted): survivors' slots
     # are cumsum(keep)-1.  Invert the slot map with a small int scatter

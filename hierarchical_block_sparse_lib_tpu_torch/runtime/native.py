@@ -50,11 +50,16 @@ def _load_lib():
     except OSError:
         return None
     i32p = ctypes.POINTER(ctypes.c_int32)
+    f32p = ctypes.POINTER(ctypes.c_float)
     i64p = ctypes.POINTER(ctypes.c_int64)
-    i32, i64 = ctypes.c_int32, ctypes.c_int64
+    i32, i64, f64 = ctypes.c_int32, ctypes.c_int64, ctypes.c_double
     for fn in (lib.hbsm_plan_spgemm, lib.hbsm_plan_spgemm_ex):
         fn.restype = None
         fn.argtypes = [i32p, i64, i32p, i64, i32, i32, i32, i64p]
+    lib.hbsm_plan_spamm.restype = None
+    lib.hbsm_plan_spamm.argtypes = [
+        i32p, f32p, i64, i32p, f32p, i64, i32, i32, i32, f64, i64p,
+    ]
     lib.hbsm_symbolic_spgemm.restype = i64
     lib.hbsm_symbolic_spgemm.argtypes = [
         i32p, i64, i32p, i64, i32, i32, i64, i32p, i32p, i32p,
@@ -165,6 +170,76 @@ def plan_spgemm_ex(a_ids, b_ids, a_nbc, b_nbr, b_nbc):
         )
         return tuple(int(v) for v in out)
     return plan_spgemm_ex_numpy(a_ids, b_ids, a_nbc, b_nbc)
+
+
+def _spamm_pairs(a_ids, a_norms, b_ids, b_norms, a_nbc, b_nbc):
+    """Chunks of the enumerated pairs of C = A @ B (SENTINEL padding
+    dropped): yields (A entry e, B entry j, ||A_e|| * ||B_j||) arrays,
+    norms in f64, and the valid ids and their block coordinates."""
+    a_ids = np.asarray(a_ids, np.int64)
+    b_ids = np.asarray(b_ids, np.int64)
+    a_norms = np.asarray(a_norms, np.float64)
+    b_norms = np.asarray(b_norms, np.float64)
+    av = a_ids != _SENTINEL
+    bv = b_ids != _SENTINEL
+    a_ids, a_norms = a_ids[av], a_norms[av]
+    b_ids, b_norms = b_ids[bv], b_norms[bv]
+    b_row = b_ids // b_nbc
+    lo = np.searchsorted(b_row, a_ids % a_nbc, side="left")
+    hi = np.searchsorted(b_row, a_ids % a_nbc, side="right")
+    cnt = hi - lo
+    offs = np.concatenate([[0], np.cumsum(cnt)])
+    n_all = int(cnt.sum())
+    chunk = 1 << 22
+    for s in range(0, n_all, chunk):
+        p = np.arange(s, min(s + chunk, n_all))
+        e = np.searchsorted(offs, p, side="right") - 1
+        j = lo[e] + p - offs[e]
+        yield e, j, a_norms[e] * b_norms[j], a_ids, b_ids
+
+
+def plan_spamm_numpy(a_ids, a_norms, b_ids, b_norms, a_nbc, b_nbc, tau):
+    """Exact (n_pairs, n_out) of the norm-filtered multiply (pairs with
+    ||A_ik|| * ||B_kj|| <= tau skipped), numpy host path."""
+    n_pairs = 0
+    out_ids = set()
+    for e, j, prod, av, bv in _spamm_pairs(a_ids, a_norms, b_ids, b_norms, a_nbc, b_nbc):
+        keep = prod > tau
+        n_pairs += int(keep.sum())
+        cid = ((av[e] // a_nbc) * b_nbc + bv[j] % b_nbc)[keep]
+        out_ids.update(np.unique(cid).tolist())
+    return n_pairs, len(out_ids)
+
+
+def spamm_error_bound(a_ids, a_norms, b_ids, b_norms, a_nbc, b_nbc, tau):
+    """Sum of ||A_ik|| * ||B_kj|| over the SKIPPED pairs: the a-priori
+    Frobenius bound on ||C_exact - C_spamm|| for the given tau (triangle
+    inequality over the dropped block products)."""
+    total = 0.0
+    for _, _, prod, _, _ in _spamm_pairs(a_ids, a_norms, b_ids, b_norms, a_nbc, b_nbc):
+        total += float(prod[prod <= tau].sum())
+    return total
+
+
+def plan_spamm(a_ids, a_norms, b_ids, b_norms, a_nbc, b_nbr, b_nbc, tau):
+    """Exact (n_pairs, n_out) when products with ||A_ik|| * ||B_kj|| <= tau
+    are skipped (SpAMM error control); C++ fast path when available."""
+    lib = _load_lib()
+    a_ids = _c32(a_ids)
+    b_ids = _c32(b_ids)
+    a_norms = np.ascontiguousarray(np.asarray(a_norms, np.float32))
+    b_norms = np.ascontiguousarray(np.asarray(b_norms, np.float32))
+    if lib is not None:
+        f32p = ctypes.POINTER(ctypes.c_float)
+        out = np.zeros(2, np.int64)
+        lib.hbsm_plan_spamm(
+            _ptr32(a_ids), a_norms.ctypes.data_as(f32p), a_ids.size,
+            _ptr32(b_ids), b_norms.ctypes.data_as(f32p), b_ids.size,
+            np.int32(a_nbc), np.int32(b_nbr), np.int32(b_nbc), float(tau),
+            out.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        )
+        return int(out[0]), int(out[1])
+    return plan_spamm_numpy(a_ids, a_norms, b_ids, b_norms, a_nbc, b_nbc, tau)
 
 
 def plan_add_numpy(a_ids, b_ids) -> int:

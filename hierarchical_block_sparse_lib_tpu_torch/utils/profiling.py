@@ -179,9 +179,9 @@ def alternate(kernel_fn, plain_fn):
     return statistics.median([k1, k2]), statistics.median([p1, p2]), (k1, k2, p1, p2)
 
 
-def in_turns(fns: dict):
+def in_turns(fns: dict, warmup=2, reps=7):
     """Median CUDA-event times of each fn, measured in order and then in
     reverse order: name -> (first, second) medians in ms."""
-    first = {name: cuda_time_ms(fn)[0] for name, fn in fns.items()}
-    second = {name: cuda_time_ms(fn)[0] for name, fn in reversed(fns.items())}
+    first = {name: cuda_time_ms(fn, warmup, reps)[0] for name, fn in fns.items()}
+    second = {name: cuda_time_ms(fn, warmup, reps)[0] for name, fn in reversed(fns.items())}
     return {name: (first[name], second[name]) for name in fns}

@@ -164,8 +164,9 @@ def test_norms_and_truncate_match_jax():
     want, want_kept = jx.truncate(jm, tau, cap=4)
     assert_same_matrix(got, want, rtol=0, atol=0)
     assert int(got_kept) == int(want_kept) > 4
-    with pytest.raises(NotImplementedError):
-        tx.truncate(tm, tau, subtree_level=1)
+    # Subtree mode: the level-1 quadrants' norms, far above tau.
+    assert_same_matrix(tx.truncate(tm, tau, subtree_level=1), jx.truncate(jm, tau, subtree_level=1),
+                       rtol=0, atol=0)
 
 
 def test_port_imports_no_jax():

@@ -94,8 +94,19 @@ def test_make_plan_matches_jax(accum):
             np.testing.assert_array_equal(np_(g), np_(w), err_msg=field)
     with pytest.raises(ValueError, match="sym_mirror"):
         tx.make_plan(ta, tb, pc, sym_mirror=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #4"):
-        tx.make_plan(ta, tb, pc, filter_by_norm=True)
+    # The norm filter: tau halfway between two neighbouring pair products.
+    an2, bn2 = tx.block_frob_squared(ta), tx.block_frob_squared(tb)
+    prods = np.sort(np.sqrt((an2[got.a_idx[:pc].long()] * bn2[got.b_idx[:pc].long()]).numpy()))
+    k = int(np.argmax(prods[1:] / prods[:-1]))
+    assert prods[k + 1] > prods[k] * (1 + 1e-5)
+    tau = float(0.5 * (prods[k] + prods[k + 1]))
+    want = jx.make_plan(ja, jb, pc + 5, tau=tau, filter_by_norm=True, **kw_j)
+    got = tx.make_plan(ta, tb, pc + 5, tau=tau, filter_by_norm=True, **kw_t)
+    for field in ("a_idx", "b_idx", "c_id", "total", "raw_total", "out_ids", "seg", "n_unique"):
+        g, w = getattr(got, field), getattr(want, field)
+        if g is not None:
+            np.testing.assert_array_equal(np_(g), np_(w), err_msg=field)
+    assert 0 < int(got.total) < int(got.raw_total)
 
 
 @pytest.mark.parametrize("args,want", [

@@ -136,9 +136,12 @@ def test_float64_takes_the_torch_path():
     dict(accum_aligned=True),
 ])
 def test_unported_paths_raise(kw):
-    """Nothing falls back quietly: every unported option names its
-    ROADMAP item."""
+    """Nothing falls back quietly: each option runs on the row-panel path,
+    and the row-group kernel, which takes none of them, raises."""
     _, xa = matrix_pair(2, 2, 128, 1.0, 41)
-    kw = dict(dict(row_caps=(8, 8)), **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tx.spgemm(xa, xa, 8, 4, **kw)
+    if kw.get("accum_aligned"):
+        kw = dict(kw, accum=tx.spgemm(xa, xa, 8, 4)[0])
+    _, info = tx.spgemm(xa, xa, 8, 4, backend="rows", row_caps=(8, 8), **kw)
+    assert not bool(info.plan_mismatch)
+    with pytest.raises(ValueError, match="filter_by_norm|rows backend"):
+        tx.spgemm(xa, xa, 8, 4, backend="groups", group_caps=(2, 8, 8, 8), **kw)
