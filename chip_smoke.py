@@ -145,7 +145,23 @@ final line):
     launches, call times and profiles, against f64 oracles; subtree
     truncation at level 3 of B3's step-1 product against host f64 node
     norms, frob_norm and nnz_blocks against the host; and
-    scripts/purification_demo.py at 1024^2 against its tolerance.
+    scripts/purification_demo.py at 1024^2 against its tolerance;
+18. (run last, after phase 14) the distributed path (parallel/) on 8 logical
+    shards (on one card all share it and the collectives pass
+    references; on several cards they spread in contiguous groups):
+    entry.dryrun_multichip(8) at tiny shapes, then B5 at its configured
+    size (BASELINE.json config 5: 131072^2, leaf 128, block band + 0.2%
+    random blocks, seed 7): plan_route against the JAX package's numbers
+    (25 869 pairs, per-device pairs, 8 176 routed against 36 078 ring
+    blocks), dist_spgemm_routed planned, frozen (bitwise equal to
+    planned) and frozen aligned, the ring and the single-device product,
+    each against the f64 single-device product; two-level routing at 2 x
+    4 and 4 x 2 against the JAX package's traffic; one frozen routed SP2
+    step (55 090 pairs, 41 882 kept blocks) against the single-device
+    sp2_step; Cannon at 2 x 2 on a B5 mix of 256 block rows; every
+    call's launches counted and its flags clean; the frozen routed call
+    under no host sync, the blocks moved per exchange, times in turns and
+    a profile of the routed call (one card), and the peak memory.
 
 Phase 2 also prints each fine-kernel launch's k-chunk, shared memory,
 occupancy, registers and spills at B2's B row cap.  Prints the card line
@@ -212,6 +228,21 @@ B1_PLAN = dict(caps=(16, 47, 50, 77), slab_blocks=100, pairs=278)
 B1_COUNTS = (278, 154, 20436)
 # B2-tile128's (block pairs, output blocks), plan_spgemm in the JAX package.
 B2T_COUNTS = (5156, 4415)
+# B5 (BASELINE.json config 5: 131072^2, leaf 128, block band + 0.2% random
+# blocks, seed 7) over 8 shards as the JAX package plans and runs it on its
+# 8-device mesh (docs/B5_ROUTE.md, scripts/b5_route_evidence.py,
+# b5_route_full.py, b5_route2_evidence.py).  route2: (hosts, chips) ->
+# (inter-host blocks, the flat plan's inter-host blocks, intra-host blocks).
+B5 = dict(
+    nb=1024, nnz=5154, pairs=25869, out_blocks=19548,
+    per_device_pairs=(3023, 3338, 3132, 3365, 3169, 3173, 3421, 3248),
+    per_stage_blocks=(5154, 1231, 1214, 1149, 1136, 1103, 1193, 1150),
+    blocks_routed=8176, blocks_ring=36078, sp2_pairs=55090, sp2_kept=41882,
+    route2={(2, 4): (3340, 4627, 25482), (4, 2): (6266, 7054, 11420)},
+)
+# Distributed products against their single-device oracle, relative to
+# max|C|.
+DIST_TOL = 1e-5
 DEVICE = "cuda"
 
 
@@ -2947,6 +2978,328 @@ def models_phase(card, b3):
     return total
 
 
+def dist_flags(stats) -> list:
+    return [f for f in ("overflow", "plan_mismatch") if f in stats and bool(stats[f])]
+
+
+def same_shards(x, y) -> bool:
+    """Two distributed matrices bitwise equal, shard by shard."""
+    import torch
+
+    return all(torch.equal(a.ids, b.ids) and torch.equal(a.data, b.data)
+               for a, b in zip(x.shards, y.shards))
+
+
+def against(label, Cd, ref, tol=DIST_TOL) -> float:
+    """A distributed matrix gathered back, against a single-device one: the
+    same stored ids, the data within `tol` of max|ref| (in f64).  Returns
+    the rel err."""
+    from hierarchical_block_sparse_lib_tpu_torch.parallel import dist
+
+    U = dist.undistribute(Cd)
+    n = int(ref.nnz)
+    if int(U.nnz) != n or not bool((U.ids[:n] == ref.ids[:n]).all()):
+        raise AssertionError(f"{label}: support differs ({int(U.nnz)} vs {n} blocks)")
+    want = ref.data[:n].double()
+    err = float((U.data[:n].double() - want).abs().max() / want.abs().max())
+    if err > tol:
+        raise AssertionError(f"{label}: rel err {err:.3e} > {tol}")
+    return err
+
+
+def counted(total: dict, want: dict, label: str, run):
+    """run(), its launches checked to be exactly `want` and added to
+    `total`."""
+    sync_cards()
+    reset_counts()
+    out = run()
+    sync_cards()
+    for k, v in launched(want, label).items():
+        total[k] = total.get(k, 0) + v
+    return out
+
+
+def ring_caps(ad, n_dev: int):
+    """The ring's global worst-case (pair_cap, stage_out_cap): the largest
+    exact plan over every (shard, stage), shard d holding B shard d - s at
+    stage s."""
+    from hierarchical_block_sparse_lib_tpu_torch.runtime import native
+
+    ids = ad.stacked_ids()
+    plans = [native.plan_spgemm_ex(ids[d], ids[(d - s) % n_dev], ad.nb_cols, ad.nb_rows,
+                                   ad.nb_cols)
+             for d in range(n_dev) for s in range(n_dev)]
+    return max(p[0] for p in plans), max(p[1] for p in plans)
+
+
+def b5_route(mesh, A, total):
+    """Phase 18's products at B5: the route plan against the JAX package's
+    numbers; dist_spgemm_routed planned, frozen (unaligned: bitwise equal to
+    planned) and frozen aligned (the default); the ring; the single-device
+    planned spgemm; each against the f64 single-device product.  Returns
+    what the times need."""
+    import torch
+
+    import hierarchical_block_sparse_lib_tpu_torch as hbsm
+    from hierarchical_block_sparse_lib_tpu_torch.ops.spgemm import plan_spgemm_ex
+    from hierarchical_block_sparse_lib_tpu_torch.parallel import dist, route
+
+    P = mesh.size
+    Ad = dist.distribute(A, mesh)
+    plan = route.plan_route(Ad, Ad, P)
+    print(f"[dist] B5 {plan.summary()}")
+    print(f"[dist]   per-device pairs {list(plan.per_device_pairs)}, per-stage blocks "
+          f"{list(plan.per_stage_blocks)}, out_cap {plan.out_cap}, union row max "
+          f"{plan.union_c_row_max}")
+    got = dict(pairs=plan.total_pairs, per_device_pairs=plan.per_device_pairs,
+               per_stage_blocks=plan.per_stage_blocks, blocks_routed=plan.blocks_routed,
+               blocks_ring=plan.blocks_ring)
+    want = {k: B5[k] for k in got}
+    if got != want:
+        raise AssertionError(f"B5 route plan {got} differs from the JAX package's {want}")
+    pc, oc, mbr, mcr = plan_spgemm_ex(A, A)
+    if (pc, oc) != (B5["pairs"], B5["out_blocks"]):
+        raise AssertionError(f"B5 single-device plan {(pc, oc)}")
+    routed = {"rows_spgemm": P * len(plan.stages)}
+    t0 = time.perf_counter()
+    frozen_u = route.freeze_route_plan(Ad, Ad, plan, aligned=False)
+    frozen = route.freeze_route_plan(Ad, Ad, plan)
+    torch.cuda.synchronize()
+    print(f"[dist]   freeze (unaligned and aligned) {time.perf_counter() - t0:.2f} s; "
+          f"default aligned={frozen.aligned}")
+    if not frozen.aligned:
+        raise AssertionError("B5's frozen plan is not aligned (8 stages, b = 128)")
+    runs = {}
+    for name, pl in (("planned", plan), ("frozen", frozen_u), ("frozen aligned", frozen)):
+        runs[name] = counted(total, routed, f"B5 routed {name}",
+                             lambda pl=pl: route.dist_spgemm_routed(Ad, Ad, mesh, pl))
+        st = runs[name][1]
+        if dist_flags(st) or int(st["n_block_pairs"]) != B5["pairs"] or tuple(
+                st["per_device_pairs"].tolist()) != B5["per_device_pairs"]:
+            raise AssertionError(f"B5 routed {name}: stats {st}")
+    if not same_shards(runs["planned"][0], runs["frozen"][0]):
+        raise AssertionError("B5 frozen routed product is not bitwise equal to the planned one")
+    pl1 = hbsm.make_plan(A, A, pc)
+    C1, info1 = counted(total, {"rows_spgemm": 1}, "B5 single-device planned spgemm",
+                        lambda: hbsm.spgemm(A, A, pc, oc, row_caps=(mbr, mcr), plan=pl1))
+    if flags_set(info1):
+        raise AssertionError(f"B5 single-device flags {flags_set(info1)}")
+    a64 = A.with_data(A.data.double())
+    C64, _ = hbsm.spgemm(a64, a64, pc, oc, backend="xla")
+    del a64
+    ring_pc, ring_oc = ring_caps(Ad, P)
+    ring = counted(total, {"gather_gemm_accumulate_stream": P * P}, "B5 ring",
+                   lambda: dist.dist_spgemm(Ad, Ad, mesh, ring_pc, plan.out_cap,
+                                            stage_out_cap=ring_oc))
+    if int(ring[1]) != B5["pairs"] or bool(ring[2]):
+        raise AssertionError(f"B5 ring: pairs {int(ring[1])}, overflow {bool(ring[2])}")
+    errs = {name: against(f"B5 routed {name}", runs[name][0], C64) for name in runs}
+    errs["ring"] = against("B5 ring", ring[0], C64)
+    n1 = int(C1.nnz)
+    errs["single-device"] = float((C1.data[:n1].double() - C64.data[:n1]).abs().max()
+                                  / C64.data[:n1].abs().max())
+    print(f"[dist]   routed planned, frozen, frozen aligned: {B5['pairs']} pairs, "
+          f"{B5['out_blocks']} output blocks as the single-device product; frozen == planned "
+          f"bitwise; ring (caps pair {ring_pc}, stage out {ring_oc}, out {plan.out_cap}) "
+          f"{int(ring[1])} pairs; rel err vs the f64 single-device product "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    if errs["single-device"] > DIST_TOL:
+        raise AssertionError(f"B5 single-device rel err {errs['single-device']:.3e}")
+    del runs, ring, C1
+    torch.cuda.empty_cache()
+    return Ad, plan, (frozen_u, frozen), (pc, oc, mbr, mcr), pl1, (ring_pc, ring_oc), C64
+
+
+def b5_route2(mesh, Ad, plan, C64, total):
+    """Phase 18, two-level routing at B5, 2 x 4 and 4 x 2: the plan's
+    traffic against the JAX package's, inter-host blocks at most the flat
+    routed count, the product against the f64 single-device one."""
+    from hierarchical_block_sparse_lib_tpu_torch.parallel import route2
+
+    for (h, c), want in B5["route2"].items():
+        mesh_hc = route2.make_mesh_2level(h, c)
+        plan2 = route2.plan_route_2level(Ad, Ad, h, c)
+        got = (plan2.dcn_blocks, plan2.dcn_blocks_flat, plan2.ici_blocks)
+        if got != want or plan2.total_pairs != B5["pairs"] or plan2.dcn_blocks > plan.blocks_routed:
+            raise AssertionError(f"B5 two-level {h}x{c}: {plan2.summary()}, expected {want}")
+        muls = sum(cap is not None for caps in plan2.stage_caps for cap in caps)
+        C2, st2 = counted(total, {"rows_spgemm": mesh.size * muls}, f"B5 two-level {h}x{c}",
+                          lambda: route2.dist_spgemm_2level(Ad, Ad, mesh_hc, plan2))
+        if dist_flags(st2) or int(st2["n_block_pairs"]) != B5["pairs"]:
+            raise AssertionError(f"B5 two-level {h}x{c}: stats {st2}")
+        err = against(f"B5 two-level {h}x{c}", C2, C64)
+        print(f"[dist] B5 {plan2.summary()}; {muls} share multiplies a shard; rel err vs f64 "
+              f"{err:.3e}; inter-host blocks <= flat routed {plan.blocks_routed}")
+
+
+def b5_sp2(mesh, A, total):
+    """Phase 18, one frozen routed SP2 step at B5 on a purifiable symmetric
+    iterate (scripts/b5_route_full.py's), against the single-device
+    sp2_step: pairs, kept blocks, ids, data within DIST_TOL."""
+    import math
+
+    import torch
+
+    import hierarchical_block_sparse_lib_tpu_torch as hbsm
+    from hierarchical_block_sparse_lib_tpu_torch.models.purification import sp2_step
+    from hierarchical_block_sparse_lib_tpu_torch.ops.spgemm import plan_spgemm_ex
+    from hierarchical_block_sparse_lib_tpu_torch.parallel import dist, route
+
+    nb, b = B5["nb"], A.block_size
+    S = hbsm.add(A, hbsm.transpose(A), alpha=0.5, beta=0.5)
+    S = hbsm.scale(S, 1.0 / math.sqrt(float(hbsm.frob_squared(S))))
+    X = hbsm.add(S, hbsm.eye(nb * b, b), beta=0.5, cap=S.cap + nb)
+    del S
+    tau, nocc = 1e-7, nb * b // 2
+    pc, oc, mbr, mcr = plan_spgemm_ex(X, X)
+    y_ref, st_ref = counted(
+        total, {"rows_spgemm": 1, "norms_and_keep": 1}, "B5 single-device SP2 step",
+        lambda: sp2_step(X, tau, pair_cap=pc, out_cap=oc, target_trace=nocc, cap=oc,
+                         row_caps=(mbr, mcr)))
+    Xd = dist.distribute(X, mesh)
+    xplan = route.plan_route(Xd, Xd, mesh.size)
+    xfrozen = route.freeze_route_plan(Xd, Xd, xplan)
+    want = {"rows_spgemm": mesh.size * len(xplan.stages), "norms_and_keep": mesh.size}
+    Yd, sst = counted(total, want, "B5 routed SP2 step",
+                      lambda: route.dist_sp2_step_routed(Xd, mesh, xfrozen, tau, target_trace=nocc,
+                                                         expect_ids=Xd.stacked_ids()))
+    kept = sum(int(s.nnz) for s in Yd.shards)
+    if dist_flags(sst) or (int(sst["n_block_pairs"]), kept) != (B5["sp2_pairs"], B5["sp2_kept"]):
+        raise AssertionError(f"B5 routed SP2: pairs {int(sst['n_block_pairs'])}, kept {kept}, "
+                             f"stats {sst}")
+    err = against("B5 routed SP2 step", Yd, y_ref)
+    print(f"[dist] B5 routed SP2 step (frozen, aligned={xfrozen.aligned}, expect_ids checked): "
+          f"{int(sst['n_block_pairs'])} pairs over {len(xplan.stages)} stages, {kept} kept "
+          f"blocks, trace {float(sst['trace']):.3f} (single device {float(st_ref.trace):.3f}); "
+          f"rel err vs the single-device sp2_step {err:.3e}")
+    del X, Xd, Yd, y_ref
+    torch.cuda.empty_cache()
+
+
+def cannon_b5(total):
+    """Phase 18, Cannon on a 2 x 2 mesh at a B5 mix of 256 block rows
+    (32768^2), its truncation and norm, against the f64 single-device
+    product."""
+    import torch
+
+    import hierarchical_block_sparse_lib_tpu_torch as hbsm
+    from hierarchical_block_sparse_lib_tpu_torch.ops.spgemm import plan_spgemm_ex
+    from hierarchical_block_sparse_lib_tpu_torch.parallel import dist2d
+    from hierarchical_block_sparse_lib_tpu_torch.utils.generators import b5_mix
+
+    A = b5_mix(256, 128)
+    mesh2 = dist2d.make_mesh2d(2)
+    A2 = dist2d.distribute2d(A, mesh2)
+    pc, oc, _, _ = plan_spgemm_ex(A, A)
+    C2, pairs, ovf = counted(total, {"gather_gemm_accumulate_stream": 8}, "Cannon 2x2",
+                             lambda: dist2d.dist2d_spgemm(A2, A2, mesh2, pair_cap=pc, out_cap=oc,
+                                                          stage_out_cap=oc))
+    if int(pairs) != pc or bool(ovf):
+        raise AssertionError(f"Cannon: pairs {int(pairs)} of {pc}, overflow {bool(ovf)}")
+    a64 = A.with_data(A.data.double())
+    C64, _ = hbsm.spgemm(a64, a64, pc, oc, backend="xla")
+    err = against("Cannon 2x2", C2, C64)
+    T2 = counted(total, {"norms_and_keep": 4}, "Cannon truncate",
+                 lambda: dist2d.dist2d_truncate(C2, mesh2, 1e-8))
+    f2 = float(dist2d.dist2d_frob_squared(T2, mesh2))
+    f64 = float(torch.sum(C64.data ** 2))
+    if abs(f2 - f64) > 1e-5 * f64:
+        raise AssertionError(f"Cannon frob^2 {f2} vs f64 {f64}")
+    print(f"[dist] Cannon 2x2 at a B5 mix of 256 block rows ({int(A.nnz)} blocks): {pc} pairs, "
+          f"{oc} output blocks, rel err vs f64 {err:.3e}; truncate + frob^2 {f2:.6e} "
+          f"(f64 {f64:.6e})")
+
+
+def sync_cards() -> None:
+    import torch
+
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def distribution_phase(card):
+    """Phase 18: the distributed path (parallel/) on P = 8 logical shards
+    (all on one card, or in contiguous groups over the visible cards).
+    The dry run at tiny shapes, then B5 at its configured size (131072^2,
+    b = 128): the route plan, the routed products, the ring, two-level
+    routing at 2 x 4 and 4 x 2, one routed SP2 step, Cannon at 2 x 2, the
+    traffic per exchange, the times in turns and profiles of the frozen
+    routed call, aligned and not (on one card: CUDA events time one
+    card), and the peak memory.  Returns the phase's
+    launches of its three kernels."""
+    import torch
+
+    import hierarchical_block_sparse_lib_tpu_torch as hbsm
+    from hierarchical_block_sparse_lib_tpu_torch.entry import dryrun_multichip
+    from hierarchical_block_sparse_lib_tpu_torch.parallel import dist, route
+    from hierarchical_block_sparse_lib_tpu_torch.utils.generators import b5_mix
+
+    t0 = time.perf_counter()
+    sync_cards()
+    cards = range(torch.cuda.device_count())
+    for i in cards:
+        torch.cuda.reset_peak_memory_stats(i)
+    P = 8
+    dryrun_multichip(P)
+    mesh = dist.make_mesh(P)
+    one_card = len({d.index for d in mesh.devices.flat}) == 1
+    print(f"[dist] mesh {mesh.shape}, shard -> device {[str(d) for d in mesh.devices.flat]}: "
+          + ("with one card every collective passes references between shards on it, so this "
+             "phase measures the routed algorithm's compute, gathers and host cost, not a link"
+             if one_card else "collectives between shards on different cards are peer copies"))
+    total = {}
+    A = b5_mix(B5["nb"], 128)
+    if int(A.nnz) != B5["nnz"]:
+        raise AssertionError(f"B5 mix holds {int(A.nnz)} blocks, not {B5['nnz']}")
+    Ad, plan, (frozen_u, frozen), (pc, oc, mbr, mcr), pl1, (ring_pc, ring_oc), C64 = b5_route(
+        mesh, A, total)
+    b5_route2(mesh, Ad, plan, C64, total)
+    del C64
+    torch.cuda.empty_cache()
+    b5_sp2(mesh, A, total)
+    cannon_b5(total)
+    t_path = time.perf_counter() - t0
+
+    routed = lambda: route.dist_spgemm_routed(Ad, Ad, mesh, frozen)  # noqa: E731
+    routed_u = lambda: route.dist_spgemm_routed(Ad, Ad, mesh, frozen_u)  # noqa: E731
+    with no_host_sync():
+        routed()
+    sync_cards()
+    mesh.traffic.reset()
+    routed()
+    moves = [e[1:] for e in mesh.traffic.exchanges]
+    mesh.traffic.reset()
+    dist.dist_spgemm(Ad, Ad, mesh, ring_pc, plan.out_cap, stage_out_cap=ring_oc)
+    ring_moves = [e[1:] for e in mesh.traffic.exchanges]
+    print(f"[dist] the frozen routed call ran with no host sync; (blocks, of which between "
+          f"cards) moved per exchange (padded panels, stages 1..7) {moves}, "
+          f"{sum(m[0] for m in moves)} in all (the plan routes {plan.blocks_routed} stored "
+          f"blocks); the ring's rotations {ring_moves}, {sum(m[0] for m in ring_moves)} in all "
+          f"(ring count {plan.blocks_ring} stored blocks)")
+    if one_card:
+        times = in_turns({
+            "routed frozen": routed,
+            "routed frozen unaligned": routed_u,
+            "routed planned": lambda: route.dist_spgemm_routed(Ad, Ad, mesh, plan),
+            "ring": lambda: dist.dist_spgemm(Ad, Ad, mesh, ring_pc, plan.out_cap,
+                                             stage_out_cap=ring_oc),
+            "single-device planned": lambda: hbsm.spgemm(A, A, pc, oc, row_caps=(mbr, mcr),
+                                                         plan=pl1),
+        })
+        print(f"[time] {card}: B5 products, 8 logical shards on one card (no link crossed), "
+              f"CUDA events, median of 7 after 2 warm-up calls, in order then reversed")
+        for name, (t1, t2) in times.items():
+            print(f"[time]   {name:24s} {t1:.3f} / {t2:.3f} ms")
+        device_profile("frozen routed B5 product (8 shards)", routed, 3, card, top=8)
+        device_profile("frozen unaligned routed B5 product (8 shards)", routed_u, 3, card, top=8)
+    else:
+        print("[time] not measured: the shards span several cards and CUDA events time one")
+    peak = max(torch.cuda.max_memory_allocated(i) for i in cards) / 2**30
+    print(f"[phase18] path {t_path:.1f} s, phase {time.perf_counter() - t0:.1f} s; peak device "
+          f"memory {peak:.2f} GiB (the fullest card); launches {total}")
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -3114,6 +3467,11 @@ def main() -> int:
     entries.update(micro_entries)
     print(f"[mem] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
+    # Phase 18, last: the distributed path on 8 logical shards, B5 at full
+    # size.  Its profiles record ~5 500 launches a call; run before phase
+    # 14, they left phase 14's next profile empty.
+    p18 = distribution_phase(card)
+
     entries["fine_spgemm"] = dict(
         max_abs_err=fine_err, ms=fine_ms, plain_ms=fine_plain_ms,
         bound=fine_bound, library_ms=None,
@@ -3128,13 +3486,15 @@ def main() -> int:
         launches[name] += n16
     for name, n17 in p17.items():
         launches[name] += n17
+    for name, n18 in p18.items():
+        launches[name] += n18
     print(f"[launches] gather_gemm_accumulate_stream: {b2t_launches} on B2-tile128 + "
           f"{purify_launches} in purify on B3; rows_spgemm: {b3_launches['rows_spgemm']} on "
           f"B3 + {b4_rows} on B4 (phase 15) + {p16['rows_spgemm']} with triu (phase 16: syrk "
           f"and the symmetric B3 path); norms_and_keep: {b3_launches['norms_and_keep']} on B3 "
           f"+ {p16['norms_and_keep']} (phase 16); fine_spgemm: {fine_launches} on B2 + "
           f"{p16['fine_spgemm']} through the class (phase 16); phase 17 (SpAMM, aligned, "
-          f"models, subtree, demo): {p17}")
+          f"models, subtree, demo): {p17}; phase 18 (distribution at B5): {p18}")
     print(f"[time] script wall {time.perf_counter() - script_t0:.1f} s")
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel never launched on its path: {launches}")

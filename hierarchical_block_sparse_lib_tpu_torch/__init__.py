@@ -33,8 +33,10 @@ kernel's norm skip), the aligned accumulate, the planned add
 ``chebyshev_apply`` and ``inv_sqrt_newton_schulz`` with their plans
 (``models``), and the norms ``frob_norm``, ``nnz_blocks``,
 ``gershgorin_bound`` and ``subtree_frob_squared`` with subtree
-``truncate``.  Of the JAX package's single-chip surface only its
-distribution (``parallel/``) is not ported.
+``truncate``; and the distribution (``parallel``): a single-process mesh
+of torch devices (``parallel.mesh``) with ring SUMMA (``dist``), Cannon
+(``dist2d``), the routed and two-level block routers and routed SP2
+(``route``, ``route2``), and ``entry.dryrun_multichip``.
 Constructors build on the CUDA card unless given another ``device``.
 """
 

@@ -112,3 +112,31 @@ def banded_block_matrix(n: int, bw: int, b: int, seed: int = 0, device=None) -> 
     if base != b:
         m = coarsen(m, b // base, cap=plan_coarsen(m, b // base))
     return m
+
+
+def b5_mix(nb: int, b: int, band_halfwidth_blocks: int = 1, random_density: float = 0.002,
+           seed: int = 7, device=None) -> BlockMatrix:
+    """The B5 structure (BASELINE.json config 5, 131072^2 at nb = 1024, b =
+    128): a block band plus a uniform random sprinkle of blocks, every
+    stored block N(0, 1) / b, on the card unless `device` names another
+    (``scripts/b5_route_evidence.py::b5_mix``, same RNG calls)."""
+    device = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    rows = np.arange(nb, dtype=np.int64)
+    band = []
+    for d in range(-band_halfwidth_blocks, band_halfwidth_blocks + 1):
+        cc = rows + d
+        ok = (cc >= 0) & (cc < nb)
+        band.append(rows[ok] * nb + cc[ok])
+    n_rand = int(random_density * nb * nb)
+    rand = rng.choice(nb * nb, n_rand, replace=False)
+    ids = np.unique(np.concatenate(band + [rand])).astype(np.int32)
+    data = rng.standard_normal((ids.size, b, b)).astype(np.float32) / b
+    return BlockMatrix(
+        ids=torch.from_numpy(ids).to(device),
+        data=torch.from_numpy(data).to(device),
+        nnz=torch.tensor(ids.size, dtype=torch.int32, device=device),
+        n_rows=nb * b,
+        n_cols=nb * b,
+        block_size=b,
+    )

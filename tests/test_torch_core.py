@@ -129,6 +129,23 @@ def test_random_block_matrix_bit_identical_to_bench():
     assert got.ids.dtype == torch.int32
 
 
+@pytest.mark.parametrize("nb,b,kw", [(64, 8, {}), (48, 16, dict(band_halfwidth_blocks=2,
+                                                                 random_density=0.01, seed=3))])
+def test_b5_mix_bit_identical_to_jax_script(nb, b, kw):
+    """The port's B5 generator builds the ids and blocks of
+    scripts/b5_route_evidence.py's b5_mix from the same seed."""
+    from hierarchical_block_sparse_lib_tpu_torch.utils.generators import b5_mix
+
+    from torch_port_helpers import import_jax_script
+
+    want = import_jax_script("b5_route_evidence").b5_mix(nb, b, **kw)
+    got = b5_mix(nb, b, device="cpu", **kw)
+    np.testing.assert_array_equal(got.ids.numpy(), np.asarray(want.ids))
+    np.testing.assert_array_equal(got.data.numpy(), np.asarray(want.data))
+    assert int(got.nnz) == int(want.nnz)
+    assert (got.n_rows, got.n_cols, got.block_size) == (want.n_rows, want.n_cols, want.block_size)
+
+
 def test_convert_round_trip():
     jm, tm = matrix_pair(6, 5, 16, 0.4, 7, pad=3)
     back = block_matrix_from_numpy(**to_numpy(tm), device="cpu")
@@ -180,6 +197,8 @@ names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+import hierarchical_block_sparse_lib_tpu_torch.parallel
+from hierarchical_block_sparse_lib_tpu_torch.entry import dryrun_multichip
 FORBIDDEN = ("jax", "jaxlib", "hierarchical_block_sparse_lib_tpu")
 bad = [m for m in sys.modules if m.split(".")[0] in FORBIDDEN]
 assert not bad, bad
@@ -196,5 +215,6 @@ print(" ".join(names))
                  "models.purification", "kernels.pallas_gemm_fine", "kernels.pallas_gemm_rows",
                  "kernels.pallas_norms", "kernels.micro_fine", "ops.repack",
                  "scripts.micro_fine_kernel", "scripts.micro_fine_kernel2",
-                 "scripts.profile_fine_pieces", "utils.profiling"):
+                 "scripts.profile_fine_pieces", "utils.profiling", "entry", "parallel.mesh",
+                 "parallel.dist", "parallel.dist2d", "parallel.route", "parallel.route2"):
         assert pkg + name in out, name

@@ -7,6 +7,8 @@ so they are bit-identical on either side.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import jax.numpy as jnp
 import torch
@@ -281,3 +283,51 @@ def assert_same_plan(port_plan, jax_plan):
     assert type(port_plan).__name__ == type(jax_plan).__name__
     for f in dataclasses.fields(jax_plan):
         same(getattr(port_plan, f.name), getattr(jax_plan, f.name), f.name)
+
+
+@contextlib.contextmanager
+def torch_threads(n: int):
+    """Run the block with `n` torch intra-op threads, then restore the
+    count.  The distributed tests run thousands of tiny ops; with the
+    suite's parallel workers each spinning up every core's worth of
+    threads, they took 198 s instead of 30 s on 8 cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
+
+
+def mix_dense(n, b, seed, extra):
+    """A dense band of half-width 2b plus `extra` random blocks: the B5
+    structure (band + random sprinkle) at test size."""
+    from hierarchical_block_sparse_lib_tpu.utils import generators as jgen
+
+    rng = np.random.default_rng(seed)
+    r, c, v = jgen.banded_coo(n, 2 * b, seed=seed)
+    d = jgen.dense_oracle(r, c, v, n)
+    nb = n // b
+    for _ in range(extra):
+        i, j = rng.integers(0, nb, 2)
+        d[i * b:(i + 1) * b, j * b:(j + 1) * b] = rng.standard_normal((b, b)).astype(np.float32) * 0.1
+    return d
+
+
+def purifiable(d):
+    """A symmetric iterate with its spectrum inside [0, 1]."""
+    ds = (d + d.T).astype(np.float32) / 2
+    ds = ds / max(1.0, 2 * np.abs(ds).sum(1).max())
+    return np.eye(d.shape[0], dtype=np.float32) * 0.55 - ds
+
+
+def assert_matches_single(yd, want_m, tol=1e-5):
+    """A distributed matrix gathered back against a single-device one:
+    the same stored ids, data within `tol` of max|want|."""
+    from hierarchical_block_sparse_lib_tpu_torch.parallel import dist
+
+    got = dist.undistribute(yd)
+    n = int(want_m.nnz)
+    assert int(got.nnz) == n
+    np.testing.assert_array_equal(got.ids[:n].numpy(), np.asarray(want_m.ids)[:n])
+    assert rel_to_max(got.data[:n].numpy(), np.asarray(want_m.data)[:n]) <= tol
