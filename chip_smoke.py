@@ -57,9 +57,11 @@ final line):
    at step 2; rows_spgemm at each step's shape, the call beside its
    kernel's profiler device time per launch and both bounds (FP32 FFMA,
    3xTF32); a torch.bmm over step 2's gathered pairs with TF32 off, as a
-   yardstick;
+   yardstick; block_frob_squared's device time per launch against its
+   bound;
 9. purification at 1024^2 (tau=1e-7, 40 steps) against the spectral
-   projector from an f64 eigendecomposition;
+   projector from an f64 eigendecomposition: the port's acceptance check
+   `scripts/acceptance.py::b3_purification`;
 10. a torch.profiler trace of 10 planned B3 scans: device time by
     kernel, launches, and the device's idle share;
 11. B3's input through `purify` (no row caps: the pair-stream kernel),
@@ -161,7 +163,14 @@ final line):
     sp2_step; Cannon at 2 x 2 on a B5 mix of 256 block rows; every
     call's launches counted and its flags clean; the frozen routed call
     under no host sync, the blocks moved per exchange, times in turns and
-    a profile of the routed call (one card), and the peak memory.
+    a profile of the routed call (one card), and the peak memory;
+19. (run after phase 18) the port's two entry points: its acceptance
+    checks (scripts/acceptance.py: seven checks at full size against f64
+    oracles) in this process, then its bench (bench.py's nine stages and
+    headline) in a subprocess, as a user runs it: exit 0, the headline line
+    with bench.py's four keys and finite positive numbers, every stage's
+    backend, the counters against the JAX package's plans, and the stage
+    table (CUDA events; no profiler).
 
 Phase 2 also prints each fine-kernel launch's k-chunk, shared memory,
 occupancy, registers and spills at B2's B row cap.  Prints the card line
@@ -174,6 +183,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -1050,6 +1060,17 @@ def b3_kernels_and_times(A, prof, plans, card):
     print(f"[time]   einsum('cij,cij->c') at out_cap {prof.out_cap}: {lib_ms:.4f} ms")
     nbytes_norms = ydata.numel() * ydata.element_size()
     cap = ydata.shape[0]
+    # block_frob_squared's call above is host-bound: its kernel's device
+    # time per launch beside its bound.
+    fb_bound = bound(2 * ydata.numel(), nbytes_norms + cap * 4)
+    fdev = device_profile(f"block_frob_squared at out_cap {cap}", lambda: pn.block_frob_squared(ydata),
+                          10, card, top=2)
+    fb_us = per_call_us(fdev, 10, "block_norms_kernel")
+    fb_device = dict(device_ms=fb_us / 1e3 if fb_us else None,
+                     share_fp32=fb_bound[0] * 1e3 / fb_us if fb_us else None)
+    print(f"[time]   block_frob_squared kernel "
+          + (f"{fb_us:.1f} us" if fb_us else "not measured") + f" per launch; bound "
+          f"{fb_bound[0] * 1e3:.1f} us ({fb_bound[1]}): {pct(fb_device['share_fp32'])} of it")
 
     # Products per slot at step 2 (the wave choice rests on them), then
     # rows_spgemm at each step's shape: the call beside its kernel's
@@ -1101,8 +1122,8 @@ def b3_kernels_and_times(A, prof, plans, card):
             bound=bound(2 * ydata.numel(), nbytes_norms + cap * 5), library_ms=lib_ms),
         "block_frob_squared": dict(
             max_abs_err=fb_err, ms=t["block_frob_squared"][0],
-            plain_ms=t["block_frob_squared"][1],
-            bound=bound(2 * ydata.numel(), nbytes_norms + cap * 4), library_ms=lib_ms),
+            plain_ms=t["block_frob_squared"][1], bound=fb_bound, library_ms=lib_ms,
+            **fb_device),
     }
     scans = {k: t[k] for k in ("scan", "planned")}
     for name in ("scan", "planned"):
@@ -1117,36 +1138,6 @@ def _plain(fn):
         with plain_kernels():
             fn()
     return run
-
-
-def acceptance_purification():
-    """Phase 9: scripts/acceptance.py's B3 check on the port."""
-    import torch
-
-    import hierarchical_block_sparse_lib_tpu_torch as hbsm
-    from hierarchical_block_sparse_lib_tpu_torch.utils import generators as gen
-
-    n, b, nocc = 1024, 128, 256
-    r, c, v = gen.banded_coo(n, 40, seed=3)
-    H = hbsm.from_coo(r, c, v, n, block_size=b)
-    dH = hbsm.to_dense(H).double()
-    dH = (dH + dH.T) / 2
-    H = hbsm.from_dense(dH.float(), block_size=b)
-    w, V = torch.linalg.eigh(dH)
-    lo, hi = float(w[0]), float(w[-1])
-    X = hbsm.add(hbsm.eye(n, b, cap=H.cap + n // b), H,
-                 alpha=hi / (hi - lo), beta=-1.0 / (hi - lo))
-    nb = n // b
-    Xf, st = hbsm.purify_scan(X, 40, tau=1e-7, pair_cap=nb**3, out_cap=nb * nb,
-                              target_trace=nocc, row_caps=(nb, nb))
-    if bool((st.pair_overflow | st.out_overflow | st.repack_overflow).any()):
-        raise AssertionError("1024^2 purification overflowed")
-    proj = V[:, :nocc] @ V[:, :nocc].T
-    rel = float(torch.linalg.norm(hbsm.to_dense(Xf).double() - proj) / torch.linalg.norm(proj))
-    print(f"[accept] purification 1024^2, 40 steps, tau=1e-7 -> spectral projector: "
-          f"Frobenius rel err {rel:.3e}")
-    if rel > 1e-4:
-        raise AssertionError(f"purification rel err {rel:.3e} > 1e-4")
 
 
 def device_profile(label, run, reps, card, unit="call", top=10):
@@ -3300,6 +3291,84 @@ def distribution_phase(card):
     return total
 
 
+# The bench's counters at full size, as the JAX package plans them (PERF.md
+# §4): B2 at leaf 32 and B2-tile128 (pairs, output blocks), B1 (pairs,
+# output blocks, leaf-16 multiplies), B3's pairs per step, B4's and
+# B4full's pairs.
+BENCH_COUNTS = dict(b2_leaf32=(335999, 189364), b2_tile128=B2T_COUNTS, b1=B1_COUNTS,
+                    b3=B3_PROFILE["per_step_pairs"], b4=65716, b4full=4192475)
+BENCH_STAGES = ("B2", "B2leaf32", "B2_default", "B1", "routed_1dev", "B3", "B4", "B4full",
+                "B4_anchor")
+BENCH_KEYS = ["metric", "value", "unit", "vs_baseline"]
+
+
+def entry_points_phase(card):
+    """Phase 19: the port's two entry points.  Its acceptance checks in
+    this process (all seven must pass), then its bench in a subprocess as
+    a user runs it: exit 0; a last line with exactly bench.py's four keys,
+    its metric and finite positive numbers; every stage's backend logged;
+    the counters equal to the JAX package's plans.  CUDA events only, no
+    profiler.  Returns the kernel launches of both: the acceptance's
+    counted here, the bench's summed from its stage lines (each stage's
+    counts read around it in the bench's process)."""
+    import math
+
+    import torch
+
+    from hierarchical_block_sparse_lib_tpu_torch.scripts import acceptance
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    reset_counts()
+    if acceptance.main() != 0:
+        raise AssertionError("the acceptance checks did not run")
+    torch.cuda.synchronize()
+    total = {k: v for k, v in counts(KERNELS).items() if v}
+    print(f"[phase19] acceptance: seven checks passed in {time.perf_counter() - t0:.1f} s; "
+          f"launches {total}")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "hierarchical_block_sparse_lib_tpu_torch.bench"],
+                          capture_output=True, text=True, timeout=600,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    stages, log_lines = {}, []
+    for line in proc.stderr.splitlines():
+        if line.startswith("[stage] "):
+            rec = json.loads(line[len("[stage] "):])
+            stages[rec.pop("stage")] = rec
+        else:
+            log_lines.append(line)
+    for line in log_lines:
+        print(f"[bench log] {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"the bench exited {proc.returncode}")
+    out = proc.stdout.strip().splitlines()
+    head = json.loads(out[-1])
+    if (list(head) != BENCH_KEYS or head["metric"] != "B2_hierarchical_spgemm_effective_gflops"
+            or head["unit"] != "GFLOP/s"
+            or not all(math.isfinite(head[k]) and head[k] > 0 for k in ("value", "vs_baseline"))):
+        raise AssertionError(f"the bench's last line {out[-1]!r}")
+    if tuple(stages) != BENCH_STAGES or not all(r.get("backend") for r in stages.values()):
+        raise AssertionError(f"bench stages {list(stages)} or a backend not logged")
+    got = dict(
+        b2_leaf32=(stages["B2leaf32"]["direct"]["pairs"], stages["B2leaf32"]["direct"]["out"]),
+        b2_tile128=(stages["B2"]["pairs"], stages["B2"]["out"]),
+        b1=(stages["B1"]["pairs"], stages["B1"]["out"], stages["B1"]["leaf_pairs"]),
+        b3=tuple(stages["B3"]["per_step_pairs"]), b4=stages["B4"]["pairs"],
+        b4full=stages["B4full"]["pairs"])
+    if got != BENCH_COUNTS:
+        raise AssertionError(f"bench counters {got}, expected {BENCH_COUNTS}")
+    print(f"[phase19] {card}: the bench (python -m hierarchical_block_sparse_lib_tpu_torch.bench), "
+          f"{wall:.1f} s wall: exit 0, every stage's backend logged, counters as the JAX package "
+          f"plans them; its stage table closes the [bench log] lines above")
+    for res in stages.values():
+        for name, n in res["stage_launches"].items():
+            total[name] = total.get(name, 0) + n
+    print(f"[phase19] bench headline: {out[-1]}")
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -3426,8 +3495,11 @@ def main() -> int:
     A3, prof, plans, b3_launches, b3_scan = b3_path()
     entries, _ = b3_kernels_and_times(A3, prof, plans, card)
 
-    # Phase 9: purification against the spectral projector.
-    acceptance_purification()
+    # Phase 9: purification against the spectral projector (the port's
+    # acceptance check).
+    from hierarchical_block_sparse_lib_tpu_torch.scripts.acceptance import b3_purification
+
+    b3_purification()
 
     # Phase 10: profile of the planned B3 scan.
     profile_planned_b3(A3, prof, plans, card)
@@ -3472,6 +3544,10 @@ def main() -> int:
     # 14, they left phase 14's next profile empty.
     p18 = distribution_phase(card)
 
+    # Phase 19: the entry points: the acceptance checks in process, then the
+    # bench in a subprocess (CUDA events, no profiler).
+    p19 = entry_points_phase(card)
+
     entries["fine_spgemm"] = dict(
         max_abs_err=fine_err, ms=fine_ms, plain_ms=fine_plain_ms,
         bound=fine_bound, library_ms=None,
@@ -3488,13 +3564,16 @@ def main() -> int:
         launches[name] += n17
     for name, n18 in p18.items():
         launches[name] += n18
+    for name, n19 in p19.items():
+        launches[name] += n19
     print(f"[launches] gather_gemm_accumulate_stream: {b2t_launches} on B2-tile128 + "
           f"{purify_launches} in purify on B3; rows_spgemm: {b3_launches['rows_spgemm']} on "
           f"B3 + {b4_rows} on B4 (phase 15) + {p16['rows_spgemm']} with triu (phase 16: syrk "
           f"and the symmetric B3 path); norms_and_keep: {b3_launches['norms_and_keep']} on B3 "
           f"+ {p16['norms_and_keep']} (phase 16); fine_spgemm: {fine_launches} on B2 + "
           f"{p16['fine_spgemm']} through the class (phase 16); phase 17 (SpAMM, aligned, "
-          f"models, subtree, demo): {p17}; phase 18 (distribution at B5): {p18}")
+          f"models, subtree, demo): {p17}; phase 18 (distribution at B5): {p18}; phase 19 "
+          f"(acceptance and bench): {p19}")
     print(f"[time] script wall {time.perf_counter() - script_t0:.1f} s")
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel never launched on its path: {launches}")

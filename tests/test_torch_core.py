@@ -187,8 +187,9 @@ def test_norms_and_truncate_match_jax():
 
 
 def test_port_imports_no_jax():
-    """Every module of the port (found by pkgutil.walk_packages, its scripts
-    included) and chip_smoke.py import neither jax nor the JAX package;
+    """Every module of the port (found by pkgutil.walk_packages, its scripts,
+    bench and acceptance included) and chip_smoke.py import neither jax
+    nor the JAX package;
     chip_smoke.py's imports inside functions are read from its source."""
     code = """
 import ast, importlib, pkgutil, sys
@@ -216,5 +217,6 @@ print(" ".join(names))
                  "kernels.pallas_norms", "kernels.micro_fine", "ops.repack",
                  "scripts.micro_fine_kernel", "scripts.micro_fine_kernel2",
                  "scripts.profile_fine_pieces", "utils.profiling", "entry", "parallel.mesh",
-                 "parallel.dist", "parallel.dist2d", "parallel.route", "parallel.route2"):
+                 "parallel.dist", "parallel.dist2d", "parallel.route", "parallel.route2",
+                 "bench", "scripts.acceptance"):
         assert pkg + name in out, name
