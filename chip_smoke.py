@@ -170,7 +170,24 @@ final line):
     headline) in a subprocess, as a user runs it: exit 0, the headline line
     with bench.py's four keys and finite positive numbers, every stage's
     backend, the counters against the JAX package's plans, and the stage
-    table (CUDA events; no profiler).
+    table (CUDA events; no profiler);
+20. (run after phase 19) the eight ablation scripts, each in a subprocess
+    as a user runs it (python -m hierarchical_block_sparse_lib_tpu_torch.
+    scripts.<name>): profile_b3 (one SP2 step at B3 in parts),
+    profile_scan (the planned scan's fixed costs at 6144^2, and the
+    compaction two ways), bench_symmetric (generic against symmetric
+    planned SP2 at B3-scale and 6144^2), profile_routed_1dev (the routed
+    one-shard product at B2-tile128 in parts, the aligned and generic
+    later-stage accumulates), bench_scatter_accum (the gather-add against
+    the in-place scatter-add at B2's routed-stage shapes), bench_band_route
+    (B1's leaf-16 product through the band tier against the block path),
+    bench_planner_scaling (the route planners' host time at 2 ... 64
+    shards) and b5_route2_evidence (two-level traffic on B5's full grid
+    and the 4x2 anchor against f64): exit 0, every check passed, the
+    kernels of each path launched, the counters against the JAX
+    package's (B3's profile, B2-tile128's, the symmetric pairs, the
+    planners' traffic, docs/B5_ROUTE.md's table), and one table of each
+    part's call time, device time and launches.
 
 Phase 2 also prints each fine-kernel launch's k-chunk, shared memory,
 occupancy, registers and spills at B2's B row cap.  Prints the card line
@@ -196,7 +213,9 @@ from hierarchical_block_sparse_lib_tpu_torch.utils.profiling import (
     bound,
     card_line,
     cuda_time_ms,
+    device_profile,
     in_turns,
+    per_call_us,
 )
 
 _CSRC = "hierarchical_block_sparse_lib_tpu_torch/kernels/csrc/"
@@ -1138,57 +1157,6 @@ def _plain(fn):
         with plain_kernels():
             fn()
     return run
-
-
-def device_profile(label, run, reps, card, unit="call", top=10):
-    """torch.profiler over `reps` calls of run(): the CUDA-event window,
-    the device's busy time and idle share, and device time by kernel, per
-    call.  Returns {kernel: (device us, launches) recorded over the `reps`
-    calls}, empty when the profiler recorded no device time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    run()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            run()
-        stop.record()
-        stop.synchronize()
-    window_us = start.elapsed_time(stop) * 1e3
-    kernels = {}
-    for e in p.key_averages():
-        dev = getattr(e, "self_device_time_total", None)
-        if dev is None:
-            dev = getattr(e, "self_cuda_time_total", 0.0)
-        if dev > 0 and e.cpu_time_total == 0:
-            kernels[e.key] = (dev, e.count)
-    busy = sum(t for t, _ in kernels.values())
-    print(f"[profile] {card}: {reps} x {label}, window {window_us / reps:.1f} us "
-          f"per {unit} (CUDA events)")
-    if busy == 0:
-        print("[profile] the profiler recorded no device time: not measured")
-        return {}
-    print(f"[profile]   device busy {busy / reps:.1f} us per {unit}, idle "
-          f"{100 * (1 - busy / window_us):.1f}% of the window")
-    for name, (t, cnt) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:top]:
-        print(f"[profile]   {100 * t / busy:5.1f}%  {t / reps:8.1f} us/{unit}  "
-              f"{cnt / reps:5.1f} launches/{unit}  {name[:90]}")
-    print(f"[profile]   {len(kernels)} distinct device functions, "
-          f"{sum(c for _, c in kernels.values()) // reps} launches per {unit}")
-    return kernels
-
-
-def per_call_us(dev, reps, match=""):
-    """Device us per call of the kernels of `dev` (device_profile's totals
-    over `reps` calls) whose names hold `match`: each kernel's time per
-    recorded launch times its launches per call.  The profiler can drop a
-    launch's record (late in this script, one of ten launches of a
-    one-kernel call), which a total over `reps` would count as no time."""
-    return sum(t / n * round(n / reps) for k, (t, n) in dev.items() if match in k and n)
 
 
 def tile_bounds(flops, nbytes, device_us, kind="tf32x3"):
@@ -3369,6 +3337,134 @@ def entry_points_phase(card):
     return total
 
 
+# Phase 20: the eight ablation scripts, each with the port's kernels on
+# its path (bench_scatter_accum times torch's ops, bench_planner_scaling
+# the host planners, b5_route2_evidence's anchor runs "xla" at b = 8).
+ABLATIONS = {
+    "profile_b3": ("rows_spgemm", "norms_and_keep", "block_frob_squared"),
+    "profile_scan": ("rows_spgemm", "norms_and_keep"),
+    "bench_symmetric": ("rows_spgemm", "norms_and_keep"),
+    "profile_routed_1dev": ("rows_spgemm",),
+    "bench_scatter_accum": (),
+    "bench_band_route": ("fine_spgemm",),
+    "bench_planner_scaling": (),
+    "b5_route2_evidence": (),
+}
+
+
+def ablation_counters(recs: dict, max_p) -> None:
+    """Phase 20's counters against the JAX package's numbers: B3's profile,
+    B2-tile128's, the symmetric A/B's pairs, the planners' traffic and
+    docs/B5_ROUTE.md's table; the bitwise equalities."""
+    from hierarchical_block_sparse_lib_tpu_torch.scripts import (
+        b5_route2_evidence,
+        bench_planner_scaling,
+        bench_symmetric,
+        profile_scan,
+    )
+
+    c = {name: rec["counters"] for name, rec in recs.items()}
+    b3 = c["profile_b3"]
+    got = dict(per_step_pairs=tuple(b3["per_step_pairs"]), per_step_out=tuple(b3["per_step_out"]),
+               per_step_kept=tuple(b3["per_step_kept"]), pair_cap=b3["pair_cap"],
+               out_cap=b3["out_cap"], cap=b3["cap"], row_caps=tuple(b3["row_caps"]))
+    if got != B3_PROFILE:
+        raise AssertionError(f"profile_b3: profile {got}, expected {B3_PROFILE}")
+    scan = c["profile_scan"]
+    if (scan["per_step_pairs"] != profile_scan.EXPECTED[(6144, 0.55, 7, 3, 1e-7)]
+            or any(scan["plan_mismatch"]["full"])):
+        raise AssertionError(f"profile_scan: pairs {scan['per_step_pairs']}, full's flags "
+                             f"{scan['plan_mismatch']['full']}")
+    for (name, n), want in bench_symmetric.EXPECTED.items():
+        rec = c["bench_symmetric"][name]
+        if ({k: rec[k] for k in want} != want or rec["n"] != n
+                or rec["symmetric_vs_generic"] > bench_symmetric.TOL):
+            raise AssertionError(f"bench_symmetric {name}: {rec}, expected {want}")
+    r = c["profile_routed_1dev"]
+    if (r["blocks"], r["pairs"], r["out"]) != (819, *B2T_COUNTS) or not r["passthrough"]:
+        raise AssertionError(f"profile_routed_1dev: counters {r}")
+    want = bench_planner_scaling.EXPECTED[(512, 8)]
+    planner = c["bench_planner_scaling"]
+    wf = {str(p): list(v) for p, v in want["flat"].items() if p <= max_p}
+    wt = {k: list(v) for k, v in want["two"].items()
+          if int(k.split("x")[0]) * int(k.split("x")[1]) <= max_p}
+    if planner["flat"] != wf or planner["two"] != wt:
+        raise AssertionError(f"bench_planner_scaling: {planner}, expected {wf}, {wt}")
+    rows = {k: tuple(v) for k, v in c["b5_route2_evidence"]["rows"].items()}
+    if (rows != b5_route2_evidence.EXPECTED[(1024, 8)]
+            or any(rows[f"{h}x{cc}"][:3] != v for (h, cc), v in B5["route2"].items())):
+        raise AssertionError(f"b5_route2_evidence: table {rows}")
+    for name, key in (("profile_b3", "planned spgemm bitwise equal to unplanned"),
+                      ("profile_scan", "full bitwise equal to purify_scan"),
+                      ("bench_scatter_accum", "gather-add and scatter-add equal")):
+        if recs[name]["checks"].get(key) is not True:
+            raise AssertionError(f"{name}: check {key!r} not passed")
+
+
+# Phase 20 stops the planner sweep at 16 shards: freezing the route plan
+# grows as P^2 and the full sweep to 64 took 395 s alone (PERF.md §5).
+PHASE20_MAX_P = 16
+
+
+def ablation_phase(card, max_p: int = PHASE20_MAX_P) -> dict:
+    """Phase 20: each ablation script run in its own process, as a user
+    runs it (a fresh profiler each: late in this script the profiler can
+    drop launch records): exit 0, its last line parsed, its checks passed,
+    its path's kernels launched, its counters as ablation_counters holds
+    them.  Prints one table of every part's call ms (median [min, max]),
+    device ms and launches per call, each script's wall seconds and peak
+    memory.  `max_p` cuts the planner sweep.  Returns the kernel launches
+    of all eight (each script's count over its run)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    log_dir = os.path.join(root, "build", "phase20")
+    os.makedirs(log_dir, exist_ok=True)
+    total, recs, walls = {}, {}, {}
+    t_phase = time.perf_counter()
+    for name, kernels in ABLATIONS.items():
+        args = ["--max-p", str(max_p)] if name == "bench_planner_scaling" else []
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "hierarchical_block_sparse_lib_tpu_torch.scripts." + name,
+             *args],
+            capture_output=True, text=True, timeout=600, cwd=root)
+        walls[name] = time.perf_counter() - t0
+        for ext, text in (("out", proc.stdout), ("err", proc.stderr)):
+            with open(os.path.join(log_dir, f"{name}.{ext}"), "w") as f:
+                f.write(text)
+        if proc.returncode != 0:
+            for line in proc.stderr.splitlines()[-30:]:
+                print(f"[phase20 {name}] {line}")
+            raise AssertionError(f"{name} exited {proc.returncode}")
+        rec = recs[name] = json.loads(proc.stdout.strip().splitlines()[-1])
+        missing = [k for k in kernels if not rec["launches"].get(k)]
+        if not rec["checks"] or not all(rec["checks"].values()) or missing:
+            raise AssertionError(f"{name}: checks {rec['checks']}, kernels not launched {missing}")
+        for k, n in rec["launches"].items():
+            total[k] = total.get(k, 0) + n
+    ablation_counters(recs, max_p)
+    cut = "" if max_p >= 64 else (f"; the planner sweep cut to P <= {max_p} (bench_planner_scaling "
+                                  f"alone runs it to 64)")
+    print(f"[phase20] {card}: the eight ablation scripts (python -m "
+          f"hierarchical_block_sparse_lib_tpu_torch.scripts.<name>), "
+          f"{time.perf_counter() - t_phase:.1f} s{cut}: exit 0, checks passed, counters as the JAX "
+          f"package's; logs in build/phase20/. Per part: call ms median [min, max] over two "
+          f"turns, device ms and launches per call (torch.profiler)")
+    for name, rec in recs.items():
+        peak = "not measured" if rec["peak_gib"] is None else f"{rec['peak_gib']:.2f} GiB"
+        print(f"[phase20] {name}: {walls[name]:.1f} s wall, peak {peak}, kernel launches "
+              f"{rec['launches']}")
+        for part, p in rec["parts"].items():
+            dev = "not measured" if p["device_ms"] is None else f"{p['device_ms']:.3f}"
+            launches = "not measured" if p["launches"] is None else f"{p['launches']:.1f}"
+            print(f"[phase20]   {part:46s} {p['ms']:9.3f} [{p['min']:.3f}, {p['max']:.3f}]  "
+                  f"device {dev}  launches {launches}")
+        for diff, d in rec["derived"].items():
+            dev = "not measured" if d["device_ms"] is None else f"{d['device_ms']:+.3f}"
+            print(f"[phase20]   = {diff:44s} {d['ms']:+9.3f} (spread {d['spread']:.3f}"
+                  f"{', inside: not a cost' if d['within_spread'] else ''})  device {dev}")
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -3548,6 +3644,10 @@ def main() -> int:
     # bench in a subprocess (CUDA events, no profiler).
     p19 = entry_points_phase(card)
 
+    # Phase 20: the eight ablation scripts, each in a subprocess.
+    torch.cuda.empty_cache()
+    p20 = ablation_phase(card)
+
     entries["fine_spgemm"] = dict(
         max_abs_err=fine_err, ms=fine_ms, plain_ms=fine_plain_ms,
         bound=fine_bound, library_ms=None,
@@ -3566,6 +3666,8 @@ def main() -> int:
         launches[name] += n18
     for name, n19 in p19.items():
         launches[name] += n19
+    for name, n20 in p20.items():
+        launches[name] += n20
     print(f"[launches] gather_gemm_accumulate_stream: {b2t_launches} on B2-tile128 + "
           f"{purify_launches} in purify on B3; rows_spgemm: {b3_launches['rows_spgemm']} on "
           f"B3 + {b4_rows} on B4 (phase 15) + {p16['rows_spgemm']} with triu (phase 16: syrk "
@@ -3573,7 +3675,7 @@ def main() -> int:
           f"+ {p16['norms_and_keep']} (phase 16); fine_spgemm: {fine_launches} on B2 + "
           f"{p16['fine_spgemm']} through the class (phase 16); phase 17 (SpAMM, aligned, "
           f"models, subtree, demo): {p17}; phase 18 (distribution at B5): {p18}; phase 19 "
-          f"(acceptance and bench): {p19}")
+          f"(acceptance and bench): {p19}; phase 20 (the ablation scripts): {p20}")
     print(f"[time] script wall {time.perf_counter() - script_t0:.1f} s")
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel never launched on its path: {launches}")

@@ -3,7 +3,9 @@
 The counterpart of ``hierarchical_block_sparse_lib_tpu/utils/profiling.py``.
 `Counters` aggregates the exact operation counters of `MultiplyInfo` and
 `PurificationStats` over a sequence of operations, as the reference's
-out-params do; `device_trace` records a ``torch.profiler`` trace.
+out-params do; `device_trace` records a ``torch.profiler`` trace, and
+`device_profile` sums one by kernel: device time, launches and the idle
+share of a window of calls.
 
 Timing.  The JAX package timed the TPU with a chained differential
 (bench.py's `bench_chained`) because that backend served cached results
@@ -185,3 +187,53 @@ def in_turns(fns: dict, warmup=2, reps=7):
     first = {name: cuda_time_ms(fn, warmup, reps)[0] for name, fn in fns.items()}
     second = {name: cuda_time_ms(fn, warmup, reps)[0] for name, fn in reversed(fns.items())}
     return {name: (first[name], second[name]) for name in fns}
+
+
+def device_profile(label, run, reps, card, unit="call", top=10):
+    """torch.profiler over `reps` calls of run(): the CUDA-event window,
+    the device's busy time and idle share, and device time by kernel, per
+    call.  Returns {kernel: (device us, launches) recorded over the `reps`
+    calls}, empty when the profiler recorded no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            run()
+        stop.record()
+        stop.synchronize()
+    window_us = start.elapsed_time(stop) * 1e3
+    kernels = {}
+    for e in p.key_averages():
+        dev = getattr(e, "self_device_time_total", None)
+        if dev is None:
+            dev = getattr(e, "self_cuda_time_total", 0.0)
+        if dev > 0 and e.cpu_time_total == 0:
+            kernels[e.key] = (dev, e.count)
+    busy = sum(t for t, _ in kernels.values())
+    print(f"[profile] {card}: {reps} x {label}, window {window_us / reps:.1f} us "
+          f"per {unit} (CUDA events)")
+    if busy == 0:
+        print("[profile] the profiler recorded no device time: not measured")
+        return {}
+    print(f"[profile]   device busy {busy / reps:.1f} us per {unit}, idle "
+          f"{100 * (1 - busy / window_us):.1f}% of the window")
+    for name, (t, cnt) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:top]:
+        print(f"[profile]   {100 * t / busy:5.1f}%  {t / reps:8.1f} us/{unit}  "
+              f"{cnt / reps:5.1f} launches/{unit}  {name[:90]}")
+    print(f"[profile]   {len(kernels)} distinct device functions, "
+          f"{sum(c for _, c in kernels.values()) // reps} launches per {unit}")
+    return kernels
+
+
+def per_call_us(dev, reps, match=""):
+    """Device us per call of the kernels of `dev` (device_profile's totals
+    over `reps` calls) whose names hold `match`: each kernel's time per
+    recorded launch times its launches per call.  The profiler can drop a
+    launch's record (late in chip_smoke.py, one of ten launches of a
+    one-kernel call), which a total over `reps` would count as no time."""
+    return sum(t / n * round(n / reps) for k, (t, n) in dev.items() if match in k and n)

@@ -218,5 +218,8 @@ print(" ".join(names))
                  "scripts.micro_fine_kernel", "scripts.micro_fine_kernel2",
                  "scripts.profile_fine_pieces", "utils.profiling", "entry", "parallel.mesh",
                  "parallel.dist", "parallel.dist2d", "parallel.route", "parallel.route2",
-                 "bench", "scripts.acceptance"):
+                 "bench", "scripts.acceptance", "scripts.ablation", "scripts.profile_b3",
+                 "scripts.profile_scan", "scripts.bench_symmetric", "scripts.profile_routed_1dev",
+                 "scripts.bench_scatter_accum", "scripts.bench_band_route",
+                 "scripts.bench_planner_scaling", "scripts.b5_route2_evidence"):
         assert pkg + name in out, name
