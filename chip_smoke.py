@@ -21,7 +21,7 @@ final line):
    8: an A row longer than a shared-memory k-chunk, a C row cut by a
    chunk boundary, an empty A row with output slots that no product
    reaches, an empty C row, slots with one and with many products, a
-   SENTINEL tail; the row-panel kernel at b=128 x the three tiers, bf16 data, the
+   SENTINEL tail; the row-panel kernel at b=128 (256 and 384 in phase 21) x the three tiers, bf16 data, the
    SpAMM skip, triu and the aligned accumulator, with union slots that no
    product reaches and a tail; both norm kernels, f32 and bf16; the
    pair-stream kernel at b in {128, 256} x the three tiers, bf16, a
@@ -187,7 +187,27 @@ final line):
     kernels of each path launched, the counters against the JAX
     package's (B3's profile, B2-tile128's, the symmetric pairs, the
     planners' traffic, docs/B5_ROUTE.md's table), and one table of each
-    part's call time, device time and launches.
+    part's call time, device time and launches;
+21. (run after phase 20, in its own process: ``python3 chip_smoke.py
+    --phase21`` runs it alone) the row-panel kernel at leaves wider than
+    128: (a) against its plain version at b = 256 and 384 on phase 3's
+    small shapes (three tiers, bf16, the SpAMM skip, triu, the aligned
+    accumulator, union slots and a tail), and b = 192 refused on the card;
+    (b) B4 at leaf 256 (random_block_matrix(8192, 256, 0.5, seed=4), the
+    same 275 GFLOP as B4 at 128): the planned spgemm with row caps (auto
+    -> "rows") against the stream kernel's product and f64, spamm (tau at
+    the median pair-norm product), syrk (triu) and the aligned accumulate
+    through their public calls, one rows_spgemm launch each, the kernel
+    with the skip and with triu against its plain version, and the
+    planned product in turns with B4 at leaf 128, device time per launch
+    against both bounds; (c) B4full at leaf 256 (32768², 8 slabs) through
+    spgemm_colslab against f64 one slab of columns at a time, the call's
+    time and the device time per slab launch against both bounds; (d) B5
+    at leaf 256 (b5_mix(512, 256, seed=7), 131072²) on 8 logical shards:
+    the frozen plan's aligned decision, the frozen aligned and generic
+    routed products and the single-device product against each other and
+    an f64 oracle on 64 sampled blocks, their call times in turns, device
+    time and launches per call.
 
 Phase 2 also prints each fine-kernel launch's k-chunk, shared memory,
 occupancy, registers and spills at B2's B row cap.  Prints the card line
@@ -273,6 +293,8 @@ B5 = dict(
 # max|C|.
 DIST_TOL = 1e-5
 DEVICE = "cuda"
+# Phase 15's leaf-128 B4full device time, reported beside phase 21's leaf 256.
+LEAF128 = {}
 
 
 def block_matrix(ids, nbr, nbc, b, rng):
@@ -521,8 +543,18 @@ def midpoint_tau(values):
     return 0.5 * (v[m - 1] + v[m])
 
 
-def small_rows():
-    """Phase 3: the row-panel kernel vs its plain version at b=128."""
+def small_rows(widths=(128,)):
+    """Phase 3 (b = 128) and phase 21(a) (b = 256 and 384): the row-panel
+    kernel vs its plain version at each leaf width."""
+    for b in widths:
+        small_rows_at(b)
+
+
+def small_rows_at(b):
+    """The row-panel kernel vs its plain version at one leaf width: the
+    three tiers, bf16 data, the SpAMM skip, triu and the aligned
+    accumulator, on rectangular operands with an empty row, union slots no
+    product reaches and a SENTINEL tail."""
     import torch
 
     import hierarchical_block_sparse_lib_tpu_torch as hbsm
@@ -532,7 +564,6 @@ def small_rows():
     )
     from hierarchical_block_sparse_lib_tpu_torch.ops.spgemm import plan_spgemm_ex
 
-    b = 128
     A = random_pattern(6, 8, b, 0.35, seed=7, empty_rows=(1,))
     B = random_pattern(8, 5, b, 0.35, seed=8, empty_rows=(2,))
     pc, oc, mbr, mcr = plan_spgemm_ex(A, B)
@@ -554,16 +585,16 @@ def small_rows():
         ("highest", dict(acc_data=acc)),
         ("bf16", {}),
     ]
-    for prec, opts in cases:
-        cargs = args
-        if prec == "bf16":
+    for label, opts in cases:
+        cargs, prec = args, label
+        if label == "bf16":
             cargs = args[:1] + (A.data.bfloat16(),) + args[2:3] + (B.data.bfloat16(),) + args[4:]
             prec = "highest"
         got = rows_spgemm(*cargs, precision=prec, **opts)
         want = rows_spgemm_reference(*cargs, precision=prec, **opts)
         torch.cuda.synchronize()
         err = rel_err(got, want)
-        name = f"b=128 {prec} {sorted(opts) or ''}"
+        name = f"b={b} {label} {sorted(opts) or ''}"
         if not err <= ROWS_TOL:
             raise AssertionError(f"rows {name}: rel err {err:.3e} > {ROWS_TOL}")
         sent = out_ids == 2**31 - 1
@@ -1669,6 +1700,7 @@ def b4_full(card):
     dev = device_profile("spgemm_colslab at B4full", lambda: hbsm.spgemm_colslab(A, A, plan=plan),
                          2, card, unit="call", top=6)
     b = tile_bounds(flops, nbytes, per_call_us(dev, 2, "rows_spgemm_kernel"))
+    LEAF128["B4full device ms"] = b["device_ms"]
     call = statistics.median(times["spgemm_colslab"])
     dense_whole = statistics.median(times["dense whole"])
     dense_slab = statistics.median(times["dense slab-wise"])
@@ -3465,6 +3497,420 @@ def ablation_phase(card, max_p: int = PHASE20_MAX_P) -> dict:
     return total
 
 
+# Phase 21: the row-panel kernel at leaf 256, run in its own process
+# (`python3 chip_smoke.py --phase21`), with a fresh profiler: late in this
+# script, after phase 18's large profiles, the profiler can drop launch
+# records.
+
+
+def sampled_exact(A, out_ids, n=64):
+    """f64 blocks of A @ A at n output ids spread evenly over the sorted
+    stored `out_ids` (numpy): (the ids, [n, b, b] f64 on A's device)."""
+    import torch
+
+    nnz = int(A.nnz)
+    a_ids = A.ids[:nnz].cpu().numpy().astype(np.int64)
+    nbc = A.nb_cols
+    pick = out_ids[np.unique(np.linspace(0, len(out_ids) - 1, n).astype(np.int64))]
+    blocks = []
+    for cid in pick.tolist():
+        i, j = divmod(cid, nbc)
+        lo, hi = np.searchsorted(a_ids, [i * nbc, (i + 1) * nbc])
+        acc = torch.zeros((A.block_size, A.block_size), dtype=torch.float64, device=A.device)
+        for e in range(lo, hi):
+            want = a_ids[e] % nbc * nbc + j
+            q = int(np.searchsorted(a_ids, want))
+            if q < nnz and a_ids[q] == want:
+                acc += A.data[e].double() @ A.data[q].double()
+        blocks.append(acc)
+    return pick, torch.stack(blocks)
+
+
+def sampled_err(C, pick, exact) -> float:
+    """max|C - exact| / max|exact| over the sampled blocks, C's stored ids
+    sorted; raises if C lacks one of them."""
+    import torch
+
+    n = int(C.nnz)
+    ids = C.ids[:n].cpu().numpy()
+    pos = np.searchsorted(ids, pick)
+    if np.any(pos >= n) or not np.array_equal(ids[np.minimum(pos, n - 1)], pick):
+        raise AssertionError("a sampled output block is not stored")
+    got = C.data[torch.from_numpy(pos).to(C.device)].double()
+    return float((got - exact).abs().max() / exact.abs().max())
+
+
+def device_per_call(dev, reps):
+    """(device ms, launches) per call from device_profile's totals, or
+    (None, None) when the profiler recorded nothing."""
+    if not dev:
+        return None, None
+    return (sum(t for t, _ in dev.values()) / reps / 1e3,
+            sum(c for _, c in dev.values()) // reps)
+
+
+def b4_leaf256(card):
+    """Phase 21(b), B4 at leaf 256: random_block_matrix(8192, 256, 0.5,
+    seed=4) squared through the planned spgemm with row caps (auto ->
+    "rows"), against the stream kernel's product and an f64 product;
+    spamm (tau at the median pair-norm product), syrk (triu) and the
+    aligned accumulate through their public calls, one rows_spgemm launch
+    each; the kernel with the SpAMM skip and with triu against its plain
+    version; the planned product timed in turns with B4 at leaf 128, and
+    each leaf's kernel device time per launch against both bounds.
+    Returns (its launches, its numbers)."""
+    import torch
+
+    import hierarchical_block_sparse_lib_tpu_torch as hbsm
+    from hierarchical_block_sparse_lib_tpu_torch.kernels import pallas_gemm_rows as pr
+    from hierarchical_block_sparse_lib_tpu_torch.ops.norms import squared_threshold
+    from hierarchical_block_sparse_lib_tpu_torch.ops.spgemm import plan_spgemm_ex, resolve_backend
+    from hierarchical_block_sparse_lib_tpu_torch.runtime import native
+    from hierarchical_block_sparse_lib_tpu_torch.utils.generators import random_block_matrix
+
+    b = 256
+    A = random_block_matrix(8192, b, 0.5, seed=4)
+    pc, oc, mbr, mcr = plan_spgemm_ex(A, A)
+    caps = (mbr, mcr)
+    backend = resolve_backend(b, A.dtype, A.nb_cols, pc, row_caps=caps)
+    plan = hbsm.make_plan(A, A, pc)
+    print(f"[B4 b=256] 8192^2 b=256 50% seed 4: {int(A.nnz)} blocks, pairs {pc} "
+          f"({2 * b**3 * pc / 1e9:.1f} GFLOP), out {oc}, row caps {caps}; auto -> {backend!r}")
+    if backend != "rows":
+        raise AssertionError(f"B4 at leaf 256 with row caps resolves to {backend!r}")
+    total = {}
+    C, info = counted(total, {"rows_spgemm": 1}, "B4 leaf 256 (planned spgemm)",
+                      lambda: hbsm.spgemm(A, A, pc, oc, plan=plan, row_caps=caps))
+    if (int(info.n_block_pairs), int(info.n_out_blocks)) != (pc, oc) or flags_set(info):
+        raise AssertionError(f"B4 leaf 256 counters or flags {flags_set(info)}")
+    Cs, _ = hbsm.spgemm(A, A, pc, oc, plan=plan, backend="pallas")
+    if not torch.equal(C.ids, Cs.ids):
+        raise AssertionError("B4 leaf 256: rows and stream keep different blocks")
+    err_s, same = rel_err(C.data, Cs.data), torch.equal(C.data, Cs.data)
+    del Cs
+    dA = hbsm.to_dense(A).double()
+    err = rel_err(hbsm.to_dense(C).double(), dA @ dA)
+    print(f"[B4 b=256] launches {total}; vs the stream kernel's product: "
+          f"{'bitwise equal' if same else f'rel err {err_s:.3e}'}; vs the f64 product (every "
+          f"block): rel err {err:.3e}")
+    if err_s > 1e-5 or err > 1e-5:
+        raise AssertionError(f"B4 leaf 256 rel errs: stream {err_s:.3e}, f64 {err:.3e}")
+
+    # SpAMM through spamm, tau at the median pair-norm product.
+    ids = A.ids.cpu().numpy()
+    an = np.sqrt(hbsm.block_frob_squared(A).cpu().numpy())
+    prods = np.sort(np.concatenate([p for _, _, p, _, _ in native._spamm_pairs(
+        ids, an, ids, an, A.nb_cols, A.nb_cols)]))
+    tau = gap_midpoint(prods, len(prods) // 2)
+    pairs_f, out_f = hbsm.plan_spamm(A, A, tau)
+    kw = dict(pair_cap=pc, out_cap=out_f, gemm_cap=pairs_f, row_caps=caps)
+    Cf, inf = counted(total, {"rows_spgemm": 1, "block_frob_squared": 1},
+                      "spamm at B4 leaf 256", lambda: hbsm.spamm(A, A, tau, backend="rows", **kw))
+    if (int(inf.n_block_pairs), int(inf.n_out_blocks)) != (pairs_f, out_f) or flags_set(inf):
+        raise AssertionError(f"spamm at B4 leaf 256: {int(inf.n_block_pairs)} pairs, flags "
+                             f"{flags_set(inf)}")
+    n2 = hbsm.block_frob_squared(A)
+    fargs = (A.ids, A.data, A.ids, A.data, Cf.ids, A.nb_rows, A.nb_rows, A.nb_cols, out_f, mbr,
+             mcr)
+    skip = dict(a_norms2=n2, b_norms2=n2, tau2=squared_threshold(tau))
+    k, p = pr.rows_spgemm(*fargs, **skip), pr.rows_spgemm_reference(*fargs, **skip)
+    rel_f = rel_err(k, p)
+    del k, p, Cf
+    # triu through syrk (A @ A^T, upper blocks only), and the kernel's
+    # triu launch on A @ A's slots against its plain version.
+    Cy, iy = counted(total, {"rows_spgemm": 1}, "syrk at B4 leaf 256", lambda: hbsm.syrk(A))
+    err_y = rel_err(hbsm.to_dense(Cy).double(), dA @ dA.T)
+    del Cy
+    rargs = (A.ids, A.data, A.ids, A.data, C.ids, A.nb_rows, A.nb_rows, A.nb_cols, oc, mbr, mcr)
+    k, p = pr.rows_spgemm(*rargs, triu=True), pr.rows_spgemm_reference(*rargs, triu=True)
+    rel_t = rel_err(k, p)
+    del k, p, dA
+    # The aligned accumulate: A @ A + D, D on the product's support.
+    gen = torch.Generator(device=A.device).manual_seed(21)
+    D = C.with_data(torch.where(C.valid_mask()[:, None, None],
+                                torch.randn(C.data.shape, generator=gen, device=A.device), 0))
+    Ca, ia = counted(total, {"rows_spgemm": 1}, "aligned accumulate at B4 leaf 256",
+                     lambda: hbsm.spgemm(A, A, pc, oc, accum=D, accum_aligned=True,
+                                         backend="rows", row_caps=caps))
+    if not torch.equal(Ca.ids, C.ids) or flags_set(ia):
+        raise AssertionError(f"aligned accumulate at B4 leaf 256: ids or flags {flags_set(ia)}")
+    err_a = rel_err(Ca.data, C.data + D.data)
+    del Ca, D
+    print(f"[B4 b=256] spamm: tau {tau:.6e}, {pairs_f} of {pc} pairs, {out_f} blocks; the "
+          f"kernel with the skip vs plain rel err {rel_f:.3e}; syrk vs f64 A A^T rel err "
+          f"{err_y:.3e} ({int(iy.n_block_pairs)} upper pairs); the kernel with triu vs plain "
+          f"rel err {rel_t:.3e}; aligned accumulate vs C + D rel err {err_a:.3e}; launches {total}")
+    if max(rel_f, rel_t) > ROWS_TOL or max(err_y, err_a) > 1e-5:
+        raise AssertionError(f"B4 leaf 256 options: skip {rel_f:.3e}, triu {rel_t:.3e}, syrk "
+                             f"{err_y:.3e}, aligned {err_a:.3e}")
+
+    # In turns with B4 at leaf 128 (phase 15's input), and each kernel's
+    # device time per launch against both bounds.
+    A1 = random_block_matrix(8192, 128, 0.5, seed=4)
+    pc1, oc1, mbr1, mcr1 = plan_spgemm_ex(A1, A1)
+    plan1 = hbsm.make_plan(A1, A1, pc1)
+    runs = {
+        "leaf 256": lambda: hbsm.spgemm(A, A, pc, oc, plan=plan, row_caps=caps),
+        "leaf 128": lambda: hbsm.spgemm(A1, A1, pc1, oc1, plan=plan1, row_caps=(mbr1, mcr1)),
+    }
+    times = in_turns(runs)
+    shapes = {"leaf 256": (A, pc, oc), "leaf 128": (A1, pc1, oc1)}
+    numbers = {}
+    for name, run in runs.items():
+        M, npc, noc = shapes[name]
+        bb = M.block_size
+        dev = device_profile(f"planned spgemm at B4 {name}", run, 5, card, top=4)
+        numbers[name] = tile_bounds(2 * bb**3 * npc, M.data.numel() * 4 + noc * bb * bb * 4,
+                                    per_call_us(dev, 5, "rows_spgemm_kernel"))
+    print(f"[time] {card}: B4 8192^2 planned spgemm on 'rows', CUDA events, median of 7 after "
+          f"2 warm-up calls, in order then reversed")
+    for name, (t1, t2) in times.items():
+        nb = numbers[name]
+        dev_us = "not measured" if nb["device_ms"] is None else f"{1e3 * nb['device_ms']:.1f} us"
+        print(f"[time]   {name}: call {t1:.3f} / {t2:.3f} ms; rows_spgemm {dev_us} a launch "
+              f"({shapes[name][1]} products); bounds FP32 {nb['bound_fp32_ms']:.3f} ms "
+              f"({pct(nb['share_fp32'])}), 3xTF32 {nb['bound_route_ms']:.3f} ms "
+              f"({pct(nb['share_route'])})")
+    return total, {name: dict(numbers[name], call_ms=times[name]) for name in runs}
+
+
+def b4full_leaf256(card):
+    """Phase 21(c), B4full at leaf 256: random_block_matrix(32768, 256,
+    0.5, seed=4) through plan_colslab(8) and spgemm_colslab on the
+    row-panel kernel, against the plan's counters and an f64 product one
+    slab of columns at a time (as phase 15 checks leaf 128); the call's
+    time, the kernel's device time per slab launch against both bounds,
+    the peak memory.  Returns (its launches, its numbers)."""
+    import torch
+
+    import hierarchical_block_sparse_lib_tpu_torch as hbsm
+    from hierarchical_block_sparse_lib_tpu_torch.ops.slab import plan_colslab
+    from hierarchical_block_sparse_lib_tpu_torch.utils.generators import random_block_matrix
+
+    n, n_slabs, b = 32768, 8, 256
+    t0 = time.perf_counter()
+    A = random_block_matrix(n, b, 0.5, seed=4)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plan = plan_colslab(A, A, n_slabs)
+    plan_s = time.perf_counter() - t0
+    flops = 2 * b**3 * plan.total_pairs
+    print(f"[B4full b=256] {n}^2 b=256 50% seed 4: {int(A.nnz)} blocks "
+          f"({A.data.numel() * 4 / 1e9:.2f} GB), made in {gen_s:.1f} s; plan_colslab({n_slabs}) "
+          f"{plan_s:.2f} s on the host: pairs {plan.total_pairs} ({flops / 1e12:.2f} TFLOP), out "
+          f"{plan.n_out} blocks ({plan.n_out * b * b * 4 / 1e9:.2f} GB), "
+          f"{plan.total_pairs / plan.n_out:.1f} products a slot")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    total = {}
+    t0 = time.perf_counter()
+    C, info = counted(total, {"rows_spgemm": n_slabs}, "B4full leaf 256 (spgemm_colslab)",
+                      lambda: hbsm.spgemm_colslab(A, A, plan=plan))
+    first_s = time.perf_counter() - t0
+    peak_call = torch.cuda.max_memory_allocated() - base
+    cnt = (int(info.n_block_pairs), int(info.n_out_blocks))
+    if cnt != (plan.total_pairs, plan.n_out) or flags_set(info):
+        raise AssertionError(f"B4full leaf 256 counters {cnt} vs plan, flags {flags_set(info)}")
+    dA = hbsm.to_dense(A).double()
+    dC = hbsm.to_dense(C)
+    del C
+    w = A.n_cols // n_slabs
+    worst = scale = 0.0
+    for s in range(n_slabs):
+        exact = dA @ dA[:, s * w:(s + 1) * w]
+        scale = max(scale, float(exact.abs().max()))
+        worst = max(worst, float((dC[:, s * w:(s + 1) * w].double() - exact).abs().max()))
+        del exact
+    err = worst / scale
+    del dA, dC
+    torch.cuda.empty_cache()
+    print(f"[B4full b=256] launches {total}; first call {first_s:.2f} s; counters {cnt} as "
+          f"planned, no flag; the call's peak above its inputs {peak_call / 2**30:.2f} GiB; vs "
+          f"the f64 product (one slab of columns at a time): rel err {err:.3e}")
+    if err > 1e-5:
+        raise AssertionError(f"B4full leaf 256 rel err {err:.3e} > 1e-5")
+    run = lambda: hbsm.spgemm_colslab(A, A, plan=plan)  # noqa: E731
+    call, call_times = cuda_time_ms(run, warmup=1, reps=3)
+    dev = device_profile("spgemm_colslab at B4full leaf 256", run, 2, card, unit="call", top=6)
+    nbytes = A.data.numel() * 4 + plan.n_out * b * b * 4
+    bnd = tile_bounds(flops, nbytes, per_call_us(dev, 2, "rows_spgemm_kernel"))
+    per_launch = None if bnd["device_ms"] is None else bnd["device_ms"] / n_slabs
+    print(f"[time] {card}: B4full leaf 256, CUDA events, median of 3 after 1 warm-up call: "
+          f"call {call:.1f} ms [{min(call_times):.1f}, {max(call_times):.1f}] = "
+          f"{100 * bnd['bound_route_ms'] / call:.1f}% of its {bnd['bound_route_ms']:.1f} ms 3xTF32 "
+          f"bound; rows_spgemm "
+          + ("not measured" if per_launch is None else
+             f"{bnd['device_ms']:.1f} ms a call, {per_launch:.2f} ms")
+          + f" per slab launch ({plan.total_pairs / n_slabs:.0f} products; bounds a launch FP32 "
+          f"{bnd['bound_fp32_ms'] / n_slabs:.2f} ms ({pct(bnd['share_fp32'])}), 3xTF32 "
+          f"{bnd['bound_route_ms'] / n_slabs:.2f} ms ({pct(bnd['share_route'])})); bytes "
+          f"{1e3 * nbytes / 3.35e12:.2f} ms; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return total, dict(bnd, call_ms=call)
+
+
+def b5_leaf256(card):
+    """Phase 21(d), B5 at leaf 256: b5_mix(512, 256, seed=7), 131072^2, on
+    8 logical shards (phase 18's mesh): the frozen plan's aligned decision
+    (the reference's rule; tests/test_torch_route_wide.py holds it equal to
+    the JAX package's), the frozen aligned and frozen generic routed
+    products and the single-device planned spgemm, against each other and
+    an f64 oracle on sampled blocks; their call times in turns, device ms
+    and launches per call.  Returns (its launches, its numbers)."""
+    import torch
+
+    import hierarchical_block_sparse_lib_tpu_torch as hbsm
+    from hierarchical_block_sparse_lib_tpu_torch.ops.spgemm import plan_spgemm_ex
+    from hierarchical_block_sparse_lib_tpu_torch.parallel import dist, route
+    from hierarchical_block_sparse_lib_tpu_torch.utils.generators import b5_mix
+
+    P = 8
+    mesh = dist.make_mesh(P)
+    A = b5_mix(512, 256, seed=7)
+    Ad = dist.distribute(A, mesh)
+    plan = route.plan_route(Ad, Ad, P)
+    pc, oc, mbr, mcr = plan_spgemm_ex(A, A)
+    t0 = time.perf_counter()
+    frozen = route.freeze_route_plan(Ad, Ad, plan)
+    frozen_u = route.freeze_route_plan(Ad, Ad, plan, aligned=False)
+    sync_cards()
+    print(f"[B5 b=256] b5_mix(512, 256, seed 7): {int(A.nnz)} blocks "
+          f"({A.data.numel() * 4 / 1e9:.2f} GB), {pc} pairs, {oc} output blocks; {plan.summary()}; "
+          f"stage row caps {list(plan.stage_row_caps)}, union row max {plan.union_c_row_max}; "
+          f"freeze (aligned and generic) {time.perf_counter() - t0:.2f} s; default "
+          f"aligned={frozen.aligned}")
+    if not frozen.aligned or plan.total_pairs != pc:
+        raise AssertionError(f"B5 leaf 256: aligned {frozen.aligned}, pairs {plan.total_pairs} "
+                             f"vs {pc}")
+    total = {}
+    routed = {"rows_spgemm": P * len(plan.stages)}
+    runs = {}
+    for name, fz in (("frozen aligned", frozen), ("frozen generic", frozen_u)):
+        runs[name] = counted(total, routed, f"B5 leaf 256 routed {name}",
+                             lambda fz=fz: route.dist_spgemm_routed(Ad, Ad, mesh, fz))
+        st = runs[name][1]
+        if dist_flags(st) or int(st["n_block_pairs"]) != pc:
+            raise AssertionError(f"B5 leaf 256 routed {name}: stats {st}")
+    pl1 = hbsm.make_plan(A, A, pc)
+    C1, info1 = counted(total, {"rows_spgemm": 1}, "B5 leaf 256 single-device spgemm",
+                        lambda: hbsm.spgemm(A, A, pc, oc, row_caps=(mbr, mcr), plan=pl1))
+    if flags_set(info1):
+        raise AssertionError(f"B5 leaf 256 single-device flags {flags_set(info1)}")
+    agree = {name: against(f"B5 leaf 256 routed {name}", runs[name][0], C1) for name in runs}
+    pick, exact = sampled_exact(A, C1.ids[:oc].cpu().numpy(), 64)
+    oracle = {name: sampled_err(dist.undistribute(runs[name][0]), pick, exact) for name in runs}
+    oracle["single-device"] = sampled_err(C1, pick, exact)
+    print(f"[B5 b=256] launches {total}; routed vs single-device rel err "
+          + ", ".join(f"{k} {v:.3e}" for k, v in agree.items())
+          + f"; vs the f64 product on {len(pick)} sampled blocks "
+          + ", ".join(f"{k} {v:.3e}" for k, v in oracle.items()))
+    if max(oracle.values()) > 1e-5:
+        raise AssertionError(f"B5 leaf 256 vs f64: {oracle}")
+    del runs, C1, exact
+    torch.cuda.empty_cache()
+    calls = {
+        "routed frozen aligned": lambda: route.dist_spgemm_routed(Ad, Ad, mesh, frozen),
+        "routed frozen generic": lambda: route.dist_spgemm_routed(Ad, Ad, mesh, frozen_u),
+        "single-device planned": lambda: hbsm.spgemm(A, A, pc, oc, row_caps=(mbr, mcr),
+                                                     plan=pl1),
+    }
+    times = in_turns(calls)
+    numbers = {}
+    for name, run in calls.items():
+        dev_ms, n_launch = device_per_call(device_profile(f"B5 leaf 256 {name}", run, 3, card,
+                                                          top=5), 3)
+        numbers[name] = dict(call_ms=times[name], device_ms=dev_ms, launches=n_launch)
+    print(f"[time] {card}: B5 leaf 256, 8 logical shards on one card, CUDA events, median of 7 "
+          f"after 2 warm-up calls, in order then reversed; device ms and launches per call "
+          f"from torch.profiler")
+    for name, nb in numbers.items():
+        t1, t2 = nb["call_ms"]
+        dev = "not measured" if nb["device_ms"] is None else f"{nb['device_ms']:.3f} ms"
+        print(f"[time]   {name:24s} call {t1:.3f} / {t2:.3f} ms; device {dev}, "
+              f"{nb['launches']} launches a call")
+    return total, numbers
+
+
+def wide_leaf_path(card) -> dict:
+    """Phase 21's work, in this process: the row-panel kernel at b = 256
+    and 384 against its plain version at small shapes (and b = 192
+    refused), then B4, B4full and B5 at leaf 256.  Returns its launches and
+    numbers."""
+    import torch
+
+    from hierarchical_block_sparse_lib_tpu_torch.kernels.pallas_gemm_rows import rows_spgemm
+
+    t0 = time.perf_counter()
+    print("[phase21] the row-panel kernel at leaf 256: small shapes vs plain (b = 256, 384)")
+    small_rows((256, 384))
+    ids = torch.zeros(2, dtype=torch.int32, device=DEVICE)
+    data = torch.zeros((2, 192, 192), device=DEVICE)
+    try:
+        rows_spgemm(ids, data, ids, data, ids, 1, 1, 2, 2, 2, 2)
+    except ValueError as e:
+        print(f"  rows b=192 refused on the card: {e}")
+    else:
+        raise AssertionError("rows_spgemm took b = 192 on the card")
+    launches, numbers = {}, {}
+    for name, part in (("B4", b4_leaf256), ("B4full", b4full_leaf256), ("B5", b5_leaf256)):
+        got, numbers[name] = part(card)
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        torch.cuda.empty_cache()
+    print(f"[phase21] {time.perf_counter() - t0:.1f} s; launches {launches}")
+    return {"launches": launches, "numbers": numbers}
+
+
+def wide_leaf_phase(card) -> dict:
+    """Phase 21 in its own process (`python3 chip_smoke.py --phase21`):
+    its report relayed, its stderr under build/phase21.err, exit 0 or
+    raise.  Prints leaf 256's B4full device time beside phase 15's leaf
+    128.  Returns its kernel launches."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--phase21"],
+                          capture_output=True, text=True, timeout=600, cwd=root)
+    os.makedirs(os.path.join(root, "build"), exist_ok=True)
+    with open(os.path.join(root, "build", "phase21.err"), "w") as f:
+        f.write(proc.stderr)
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        print(line)
+    if proc.returncode != 0:
+        for line in proc.stderr.splitlines()[-30:]:
+            print(f"[phase21] {line}")
+        raise AssertionError(f"phase 21 exited {proc.returncode}")
+    rec = json.loads(lines[-1])
+    full = rec["numbers"]["B4full"]
+    leaf128 = LEAF128.get("B4full device ms")
+    print(f"[phase21] {card}: B4full device time a call in rows_spgemm, leaf 128 (phase 15) "
+          + ("not measured" if leaf128 is None else f"{leaf128:.1f} ms")
+          + ", leaf 256 "
+          + ("not measured" if full["device_ms"] is None else f"{full['device_ms']:.1f} ms")
+          + f"; phase wall {time.perf_counter() - t0:.1f} s (its own process)")
+    return rec["launches"]
+
+
+def phase21_main() -> int:
+    """`python3 chip_smoke.py --phase21`: phase 21 alone (the kernels it
+    needs built if they are not), its last line one JSON object of its
+    launches and numbers."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
+        return 2
+    from hierarchical_block_sparse_lib_tpu_torch.kernels import _build
+
+    _build.load_all(["gemm_rows", "norms", "gemm_stream"])
+    card = card_line()
+    print(card)
+    print(json.dumps(wide_leaf_path(card)))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -3648,6 +4094,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     p20 = ablation_phase(card)
 
+    # Phase 21: the row-panel kernel at leaf 256, in a subprocess.
+    p21 = wide_leaf_phase(card)
+
     entries["fine_spgemm"] = dict(
         max_abs_err=fine_err, ms=fine_ms, plain_ms=fine_plain_ms,
         bound=fine_bound, library_ms=None,
@@ -3668,6 +4117,8 @@ def main() -> int:
         launches[name] += n19
     for name, n20 in p20.items():
         launches[name] += n20
+    for name, n21 in p21.items():
+        launches[name] += n21
     print(f"[launches] gather_gemm_accumulate_stream: {b2t_launches} on B2-tile128 + "
           f"{purify_launches} in purify on B3; rows_spgemm: {b3_launches['rows_spgemm']} on "
           f"B3 + {b4_rows} on B4 (phase 15) + {p16['rows_spgemm']} with triu (phase 16: syrk "
@@ -3675,7 +4126,8 @@ def main() -> int:
           f"+ {p16['norms_and_keep']} (phase 16); fine_spgemm: {fine_launches} on B2 + "
           f"{p16['fine_spgemm']} through the class (phase 16); phase 17 (SpAMM, aligned, "
           f"models, subtree, demo): {p17}; phase 18 (distribution at B5): {p18}; phase 19 "
-          f"(acceptance and bench): {p19}; phase 20 (the ablation scripts): {p20}")
+          f"(acceptance and bench): {p19}; phase 20 (the ablation scripts): {p20}; phase 21 "
+          f"(leaf 256: B4, B4full, B5): {p21}")
     print(f"[time] script wall {time.perf_counter() - script_t0:.1f} s")
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel never launched on its path: {launches}")
@@ -3703,4 +4155,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(phase21_main() if sys.argv[1:] == ["--phase21"] else main())

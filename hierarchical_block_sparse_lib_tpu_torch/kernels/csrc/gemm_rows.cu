@@ -1,5 +1,6 @@
-// Row-panel SpGEMM for Hopper (sm_90a) at 128-wide leaves: C(i,j) =
-// sum_k A(i,k) B(k,j) into the slots of a sorted output id list.
+// Row-panel SpGEMM for Hopper (sm_90a) at leaves that are a multiple of
+// 128 wide: C(i,j) = sum_k A(i,k) B(k,j) into the slots of a sorted output
+// id list.
 //
 // Replaces hierarchical_block_sparse_lib_tpu/kernels/pallas_gemm_rows.py::
 // rows_spgemm.  It computes what that kernel computes (same row tables,
@@ -8,26 +9,32 @@
 // aligned accumulator) and none of its TPU formulation: no VMEM panels,
 // DMA chains, pipeline tiers or panel-wide dots.
 //
-// Layout: canonical row-major 128x128 blocks, f32 or bf16; output f32.
+// Layout: canonical row-major b x b blocks, b % 128 == 0, f32 or bf16;
+// output f32.
 //
 // What bounds it: operations.  A 128-wide leaf product is 4.2 MFLOP
-// against 128 KB of operands, so at the B3 shapes (4498 products per
-// multiply) the floor is the tensor-core rate of the tier's passes
-// (3xTF32 at "highest": 0.114 ms at step 2, where FP32 FFMA, the first
-// design's engine, had 0.282).  A slot is split into two 128x64 halves,
-// a 256-thread block each, next to each other: 1 288 blocks at B3's 644 slots, 4.9
-// waves of the 264 that fit at two blocks an SM.  Each block finds the
+// against 128 KB of operands (a 256-wide one 33.5 MFLOP against 512 KB),
+// so at the B3 shapes (4498 products per multiply) the floor is the
+// tensor-core rate of the tier's passes (3xTF32 at "highest": 0.114 ms at
+// step 2, where FP32 FFMA, the first design's engine, had 0.282).  A slot
+// is cut into (b/128)(b/64) tiles of 128 rows x 64 columns, a 256-thread
+// block each, the tiles of one slot next to each other in launch order so
+// that they find the slot's A and B blocks in L2: at b = 128 two halves,
+// 1 288 blocks at B3's 644 slots, 4.9 waves of the 264 that fit at two
+// blocks an SM; at b = 256 eight tiles a slot.  Each block finds the
 // slot's products with one binary search per A entry of the row (spread
 // over the threads, compacted in ascending A-entry order with a warp
-// ballot), then runs them through the ring engine of gemm_tile.cuh: their
-// k-slices stream through a three-stage cp.async ring, one barrier a
-// slice, the next product's first slices in flight under this one's
-// math, into wgmma (3xTF32) or mma.sync (bf16 passes) fragments held in
-// registers.  What is left: the passes' issue, about as much time again
-// in the operand stream from L2 (both halves of a slot read all of A's
-// blocks), and the hit search's serial start per slot.
+// ballot; every tile of a slot repeats it), then runs them through the
+// ring engine of gemm_tile.cuh at depth b: their k-slices stream through
+// a three-stage cp.async ring, one barrier a slice, the next product's
+// first slices in flight under this one's math, into wgmma (3xTF32) or
+// mma.sync (bf16 passes) fragments held in registers.  What is left: the
+// passes' issue, about as much time again in the operand stream from L2
+// (every tile of a slot reads its 128-row band of each A block and its
+// 64-column band of each B block), and the hit search's serial start per
+// tile.
 //
-// Determinism: each half of a slot is written once by one block that
+// Determinism: each tile of a slot is written once by one block that
 // accumulates its products serially in ascending A-entry order, k
 // ascending within a product, in f32 registers, with no atomics, so a
 // fixed structure gives bitwise-equal results.
@@ -58,25 +65,31 @@ __global__ void __launch_bounds__(kThreads, 2)
                        const float* __restrict__ bn2,
                        const float* __restrict__ tau2_ptr, float tau2_val,
                        float* __restrict__ out, int nbr, int nbc,
-                       int b_row_max, int triu) {
+                       int b_row_max, int triu, int ld) {
   extern __shared__ __align__(16) unsigned char ring_bytes[];
   __shared__ int hit_e[kThreads];
   __shared__ int hit_q[kThreads];
   __shared__ int warp_hits[kWarps];
   T* ring = reinterpret_cast<T*>(ring_bytes);
-  // Block 2 slot + half: columns 64 * half + [0, 64) of the slot's block.
-  // A slot's two halves are neighbours in launch order, so the second
-  // finds the slot's operands in L2.
-  const int slot = blockIdx.x / 2;
-  const int col0 = blockIdx.x % 2 * kRingCols;
-  const size_t tile_off = static_cast<size_t>(slot) * kTile * kTile + col0;
+  // Block tiles * slot + t: rows 128 * (t / nc) and columns 64 * (t % nc)
+  // of the slot's ld x ld block, nc = ld / 64.  A slot's tiles are
+  // neighbours in launch order, so the later ones find its operands in L2.
+  // Offsets are 64-bit: at b = 256 an output of 16 384 slots is 4 GiB.
+  const int nc = ld / kRingCols;
+  const int tiles = ld / kTile * nc;
+  const int slot = blockIdx.x / tiles;
+  const int t = blockIdx.x % tiles;
+  const size_t block = static_cast<size_t>(ld) * ld;
+  const size_t a_off = static_cast<size_t>(t / nc) * kTile * ld;
+  const size_t b_off = static_cast<size_t>(t % nc) * kRingCols;
+  const size_t tile_off = slot * block + a_off + b_off;
 
   const int id = out_ids[slot];
   const int i = id / nbc;
   const bool valid = id != kSentinel && i < nbr;
   Frags acc;
   load_frags(acc, valid && acc_data != nullptr ? acc_data + tile_off : nullptr,
-             kTile);
+             ld);
 
   const int j = id - i * nbc;
   // Upper-triangle mode computes only slots with j >= i; the others keep
@@ -100,14 +113,15 @@ __global__ void __launch_bounds__(kThreads, 2)
       }
       // Products in ascending A-entry order.
       const int n_hits = compact_hits(e, q, hit_e, hit_q, warp_hits);
-      accumulate_ring<T, MODE>(acc, ring, n_hits, size_t{kTile}, [&](int h) {
-        const size_t block = static_cast<size_t>(kTile) * kTile;
-        return Operands<T>{a + hit_e[h] * block, b + hit_q[h] * block + col0};
+      accumulate_ring<T, MODE>(acc, ring, n_hits, static_cast<size_t>(ld),
+                               [&](int h) {
+        return Operands<T>{a + hit_e[h] * block + a_off,
+                           b + hit_q[h] * block + b_off};
       });
     }
   }
   // Every slot is written: SENTINEL tail slots as zeros.
-  store_frags(out + tile_off, acc, kTile);
+  store_frags(out + tile_off, acc, ld);
 }
 
 struct Args {
@@ -116,7 +130,7 @@ struct Args {
   const float *acc_data, *an2, *bn2, *tau2_ptr;
   float tau2_val;
   float* out;
-  int out_cap, nbr, nbc, b_row_max, triu;
+  int out_cap, nbr, nbc, b_row_max, triu, ld;
 };
 
 // Launches, or with `info` only reports the launch (launch_info).
@@ -128,10 +142,12 @@ int launch(const Args& r, cudaStream_t stream, int* info) {
   if (err != cudaSuccess) return static_cast<int>(err);
   if (info != nullptr) return launch_info(kernel, Ring<T>::BYTES, info);
   if (r.out_cap == 0) return 0;
-  kernel<<<r.out_cap * (kTile / kRingCols), kThreads, Ring<T>::BYTES, stream>>>(
+  const int tiles = (r.ld / kTile) * (r.ld / kRingCols);
+  kernel<<<r.out_cap * tiles, kThreads, Ring<T>::BYTES, stream>>>(
       r.out_ids, r.a_row_start, r.a_col, r.b_row_start, r.b_col,
       static_cast<const T*>(r.a), static_cast<const T*>(r.b), r.acc_data, r.an2,
-      r.bn2, r.tau2_ptr, r.tau2_val, r.out, r.nbr, r.nbc, r.b_row_max, r.triu);
+      r.bn2, r.tau2_ptr, r.tau2_val, r.out, r.nbr, r.nbc, r.b_row_max, r.triu,
+      r.ld);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -156,8 +172,9 @@ extern "C" {
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
 // Every pointer is device memory: ids and tables int32; `a`/`b` f32
-// (is_bf16 == 0) or bf16 [cap, 128, 128]; `out` f32 [out_cap, 128, 128].
-// Optional (null when unused): `acc_data` f32 [out_cap, 128, 128], the
+// (is_bf16 == 0) or bf16 [cap, b, b] with b = block_size, a positive
+// multiple of 128; `out` f32 [out_cap, b, b].  Optional (null when
+// unused): `acc_data` f32 [out_cap, b, b], the
 // aligned accumulator each valid slot starts from; `an2`/`bn2` f32 block
 // norms^2 of the SpAMM skip with tau^2 at `tau2_ptr` (device) or, when
 // that is null, `tau2_val`.  precision: 0 highest, 1 high, 2 default (bf16
@@ -171,10 +188,14 @@ int hbsm_rows_spgemm(const int* out_ids, const int* a_row_start,
                      int triu, int block_size, int is_bf16, int precision,
                      void* stream) {
   if (out_cap == 0) return 0;
-  if (block_size != kTile) return static_cast<int>(cudaErrorInvalidValue);
+  if (block_size <= 0 || block_size % kTile != 0 ||
+      static_cast<long long>(out_cap) * (block_size / kTile) *
+              (block_size / kRingCols) > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const Args r{out_ids, a_row_start, a_col, b_row_start, b_col, a, b,
                acc_data, an2, bn2, tau2_ptr, tau2_val, out, out_cap, nbr,
-               nbc, b_row_max, triu};
+               nbc, b_row_max, triu, block_size};
   return dispatch(r, is_bf16, precision, static_cast<cudaStream_t>(stream),
                   nullptr);
 }

@@ -50,11 +50,13 @@ from hierarchical_block_sparse_lib_tpu_torch.kernels.pallas_gemm_fine import (
     pair_slots,
     tier_bmm,
 )
-from hierarchical_block_sparse_lib_tpu_torch.kernels.pallas_gemm_rows import CONFIG_KEYS, _tier
+from hierarchical_block_sparse_lib_tpu_torch.kernels.pallas_gemm_rows import (
+    _VMEM_BUDGET,
+    CONFIG_KEYS,
+    _tier,
+)
 
 _DTYPES = (torch.float32, torch.bfloat16)
-# The TPU kernel's VMEM budget, which the reference's group-size rule uses.
-_VMEM_BUDGET = int(13.5 * 1024 * 1024)
 
 
 def supported(b: int, dtype) -> bool:

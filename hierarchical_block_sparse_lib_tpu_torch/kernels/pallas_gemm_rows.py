@@ -1,5 +1,5 @@
-"""Row-panel SpGEMM at 128-wide leaves: the wrapper of the Hopper kernel
-``kernels/csrc/gemm_rows.cu`` and its plain PyTorch version.
+"""Row-panel SpGEMM at leaves a multiple of 128 wide: the wrapper of the
+Hopper kernel ``kernels/csrc/gemm_rows.cu`` and its plain PyTorch version.
 
 Replaces ``hierarchical_block_sparse_lib_tpu/kernels/pallas_gemm_rows.py::
 rows_spgemm`` and keeps its contract: products C(i,j) = sum_k A(i,k)
@@ -19,9 +19,12 @@ pass.  The plain version's "highest" is a full-f32 `bmm`; the two agree
 within 1e-5 of max|C| (chip_smoke.py's gate).
 
 The reference's VMEM budget (`_tier`) and its `nbc <= 4096` SMEM gate are
-TPU memory limits and are not carried over.  A CPU tensor takes
-`rows_spgemm_reference`; a CUDA tensor launches the kernel or raises.
-`rows_spgemm.launches` counts kernel launches.
+TPU memory limits and do not bound the kernel, which keeps no panel
+resident: `supported` takes every b % 128 == 0.  They are kept in
+`reference_rows_rule`, which the router uses only so that its aligned
+decision is the reference's.  A CPU tensor takes `rows_spgemm_reference`;
+a CUDA tensor launches the kernel or raises.  `rows_spgemm.launches`
+counts kernel launches.
 """
 
 from __future__ import annotations
@@ -46,12 +49,42 @@ from hierarchical_block_sparse_lib_tpu_torch.kernels.pallas_gemm_fine import (
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
+# The TPU kernels' VMEM budget, which the reference's row-panel and
+# row-group rules use.
+_VMEM_BUDGET = int(13.5 * 1024 * 1024)
+
+
 def supported(b: int, dtype) -> bool:
-    """Row-panel kernel applicability on the card: b == 128 with f32 or
-    bf16 data (other b % 128 == 0 sizes are not built yet).  Unlike the
-    reference, row caps and `nbc` bound nothing: the kernel keeps no
-    panel resident."""
-    return b == 128 and dtype in _DTYPES
+    """Row-panel kernel applicability on the card: b a multiple of 128
+    with f32 or bf16 data.  Unlike the reference, row caps and `nbc`
+    bound nothing: the kernel keeps no panel resident."""
+    return b % 128 == 0 and dtype in _DTYPES
+
+
+def _reference_tier(b: int, itemsize: int, b_row_max: int, c_row_max: int):
+    """The TPU kernel's pipeline tier (acc_parities, panel_parities) whose
+    buffers fit its VMEM budget, or None."""
+    bb, cb = _bucket(max(b_row_max, 1)), _bucket(max(c_row_max, 1))
+    for acc_p, panel_p in ((2, 4), (2, 3), (2, 2), (1, 2), (1, 1)):
+        vmem = (panel_p * bb * b * b * itemsize + acc_p * cb * b * b * 4
+                + panel_p * b * b * itemsize)
+        if vmem <= _VMEM_BUDGET:
+            return acc_p, panel_p
+    return None
+
+
+def reference_rows_rule(b: int, dtype, b_row_max: int, c_row_max: int, nbc: int) -> bool:
+    """The JAX package's `supported()` for its row-panel kernel, which its
+    router uses to choose the aligned regime: b % 128 == 0, ``nbc <=
+    4096``, not float64, and a VMEM pipeline tier that fits the row caps.
+    A TPU memory rule, kept only so that `freeze_route_plan` decides as
+    the reference does."""
+    return (
+        b % 128 == 0
+        and nbc <= 4096
+        and dtype != torch.float64
+        and _reference_tier(b, dtype.itemsize, b_row_max, c_row_max) is not None
+    )
 
 
 def _tier(precision: str, dtype) -> str:
@@ -197,7 +230,7 @@ def rows_spgemm(
     b = a_data.shape[-1]
     if not supported(b, a_data.dtype):
         raise ValueError(
-            f"rows_spgemm kernel needs b == 128 with f32 or bf16 data, "
+            f"rows_spgemm kernel needs b % 128 == 0 with f32 or bf16 data, "
             f"got b={b} {a_data.dtype}"
         )
     if (a_norms2 is None) != (b_norms2 is None):

@@ -57,8 +57,8 @@ def syrk(a: BlockMatrix, alpha=1.0, transpose: bool = False,
     `transpose=True`), computing only upper-triangle (block row <= block
     column) outputs, about half the leaf products of the generic multiply;
     the lower triangle is mirrored afterwards as C_ji = C_ij^T (a
-    transpose and a union add, no products).  At 128-wide leaves "auto"
-    runs it on the row-panel kernel with its `triu` skip.
+    transpose and a union add, no products).  At leaves a multiple of 128
+    wide "auto" runs it on the row-panel kernel with its `triu` skip.
 
     With `full=False` only the upper triangle is returned.
     `info.n_block_pairs` counts the products actually done (upper pairs).

@@ -14,8 +14,9 @@ kernel (``"groups"``), the row-panel kernel (``"rows"``), the fine kernel
 gather + `bmm` + `index_add_` (``"xla"``, the reference's non-Pallas
 path, which float64 takes).
 
-The upper-triangle enumeration (``syrk_upper``) runs on "rows" (the
-kernel's `triu` skip), "pallas" and "xla"; `plan_syrk` sizes it and
+The row-panel kernel takes every leaf a multiple of 128 wide, as the
+reference's does.  The upper-triangle enumeration (``syrk_upper``) runs on
+"rows" (the kernel's `triu` skip), "pallas" and "xla"; `plan_syrk` sizes it and
 ``make_plan(sym_mirror=True)`` plans the symmetric purification step.
 The norm filter (``filter_by_norm``: SpAMM, `spamm`, sized by
 `plan_spamm`) runs on "rows" (the kernel's skip, fed the same norms and
@@ -406,9 +407,9 @@ def resolve_backend(
     - anything else: ``"xla"``.
 
     The reference's `pair_cap >= 1024` gate and its SMEM/VMEM gates were
-    measured on or set by a TPU and are not carried over; the row-panel
-    kernel takes b == 128 only, so 256-wide leaves with row caps go to the
-    stream kernel."""
+    measured on or set by a TPU and are not carried over: the row-panel
+    kernel takes every b % 128 == 0 (128, 256, 384, ...) with row caps
+    of any size."""
     del nbc_b, pair_cap
     if dtype == torch.float64:
         return "xla"
@@ -561,7 +562,7 @@ def spgemm(
     `beta` may be numbers or 0-dim tensors (no host sync either way).
 
     backend: "groups" (row-group kernel, b % 128 == 0; needs `group_caps`
-    from `plan_groups`), "rows" (row-panel kernel, 128-wide leaves; needs
+    from `plan_groups`), "rows" (row-panel kernel, b % 128 == 0; needs
     `row_caps`), "fine" (fine kernel, leaves 16/32/64; needs `row_caps`),
     "pallas" (pair-stream kernel, b % 128 == 0), "xla" (gather + `bmm`),
     or "auto" (`resolve_backend`).  On the card an explicit kernel backend

@@ -277,8 +277,9 @@ def freeze_route_plan(
     `_routed_stages`' fused accumulates exactly.  One loop over shards
     takes the place of the reference's `jax.vmap`.
 
-    `aligned` (default: at least two kept stages and the row-panel kernel
-    takes the leaf) replans every stage against the final union."""
+    `aligned` (default: at least two kept stages and the reference's
+    row-panel rule, `pallas_gemm_rows.reference_rows_rule`, takes the leaf
+    at the plan's row caps) replans every stage against the final union."""
     n_dev = plan.n_dev
     b_ids = b.stacked_ids()
     out_cap = plan.out_cap
@@ -302,10 +303,14 @@ def freeze_route_plan(
         u = [p.out_ids for p in sp]
         stage_plans.append(sp)
     if aligned is None:
+        # The reference's rule, at the row caps it passes: the largest
+        # stage's B row cap and the final union's C row cap.
+        max_b_row = max((rc[0] for rc in plan.stage_row_caps), default=1)
         aligned = (
             len(plan.stages) >= 2
             and bool(plan.stage_row_caps)
-            and pallas_gemm_rows.supported(a.block_size, a.dtype)
+            and pallas_gemm_rows.reference_rows_rule(
+                a.block_size, a.dtype, max_b_row, plan.union_c_row_max, b.nb_cols)
         )
     if aligned:
         stage_plans = [stage_plan(k, u) for k in range(len(plan.stages))]

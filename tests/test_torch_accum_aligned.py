@@ -20,35 +20,13 @@ import torch
 
 import hierarchical_block_sparse_lib_tpu as jx
 import hierarchical_block_sparse_lib_tpu_torch as tx
-from hierarchical_block_sparse_lib_tpu.ops import spgemm as jsp
 
-from torch_port_helpers import assert_same_info, assert_same_matrix, to_port
-
-
-def _aligned_case(b, nb=8, seed=5):
-    """A random nb x nb block pattern at density 1/3 (the reference test's)
-    and an accumulator D with exactly the support of A @ A."""
-    rng = np.random.default_rng(seed)
-    nblk = nb * nb // 3
-    ids = np.sort(rng.choice(nb * nb, nblk, replace=False)).astype(np.int32)
-    n = nb * b
-    ja = jx.BlockMatrix(
-        ids=jnp.asarray(ids),
-        data=jnp.asarray(rng.standard_normal((nblk, b, b)).astype(np.float32)),
-        nnz=jnp.asarray(nblk, jnp.int32), n_rows=n, n_cols=n, block_size=b,
-    )
-    pc, oc, mbr, mcr = jsp.plan_spgemm_ex(ja, ja)
-    c0, _ = jx.spgemm(ja, ja, pair_cap=pc, out_cap=oc, backend="xla")
-    jd = dataclasses.replace(c0, data=jnp.where(
-        c0.valid_mask()[:, None, None],
-        jnp.asarray(rng.standard_normal((oc, b, b)).astype(np.float32)), 0.0,
-    ))
-    return ja, to_port(ja), jd, to_port(jd), (pc, oc, (mbr, mcr))
+from torch_port_helpers import aligned_case, assert_same_info, assert_same_matrix
 
 
 @pytest.fixture(scope="module", params=[16, 128], ids=["b16", "b128"])
 def case(request):
-    return _aligned_case(request.param)
+    return aligned_case(request.param)
 
 
 def _close(got, want):
@@ -91,7 +69,7 @@ def test_planned_equals_planless_bitwise(case):
 
 
 def test_refused_without_rows_alpha_one_or_fitting_accum():
-    _, ta, _, td, (pc, oc, rc) = _aligned_case(16, nb=4)
+    _, ta, _, td, (pc, oc, rc) = aligned_case(16, nb=4)
     kw = dict(pair_cap=pc, out_cap=oc, row_caps=rc, accum_aligned=True)
     with pytest.raises(ValueError, match="alpha == 1"):
         tx.spgemm(ta, ta, accum=td, alpha=2.0, backend="rows", **kw)
@@ -115,7 +93,7 @@ def test_product_outside_accumulator_flagged():
     """An accumulator whose support misses a product block: planless, both
     packages flag it (membership search); planned, the port flags the plan
     whose union is wider than its accumulator ids."""
-    ja, ta, jd, td, (pc, oc, rc) = _aligned_case(16)
+    ja, ta, jd, td, (pc, oc, rc) = aligned_case(16)
     kw = dict(pair_cap=pc, out_cap=oc, row_caps=rc, backend="rows", accum_aligned=True)
     narrow = _narrow(td, 1)
     _, i0 = tx.spgemm(ta, ta, accum=narrow, **kw)
@@ -134,7 +112,7 @@ def test_product_outside_accumulator_flagged():
 
 def test_duplicate_accumulator_ids_flagged():
     """tests/test_spgemm.py's duplicate-id target, in both packages."""
-    ja, ta, jd, td, (pc, oc, rc) = _aligned_case(16)
+    ja, ta, jd, td, (pc, oc, rc) = aligned_case(16)
     k = int(td.nnz)
     bad = td.ids.clone()
     bad[k - 1] = bad[k - 2]
@@ -147,7 +125,7 @@ def test_duplicate_accumulator_ids_flagged():
 def test_aligned_with_norm_filter_matches_jax():
     """SpAMM into an aligned accumulator (both options on the row-panel
     path): the skipped products leave their slots at beta*D."""
-    ja, ta, jd, td, (pc, oc, rc) = _aligned_case(16, seed=6)
+    ja, ta, jd, td, (pc, oc, rc) = aligned_case(16, seed=6)
     an = np.sqrt(tx.block_frob_squared(ta).numpy()[: int(ta.nnz)])
     prods = np.sort(np.outer(an, an).ravel())
     m = len(prods) // 2

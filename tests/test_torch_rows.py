@@ -20,8 +20,10 @@ def test_rows_spgemm_matches_jax(b, precision):
 def test_supported_and_bucket():
     assert pallas_gemm_rows.supported(128, torch.float32)
     assert pallas_gemm_rows.supported(128, torch.bfloat16)
-    assert not pallas_gemm_rows.supported(256, torch.float32)  # not built yet
+    assert pallas_gemm_rows.supported(256, torch.float32)
+    assert pallas_gemm_rows.supported(384, torch.bfloat16)
     assert not pallas_gemm_rows.supported(64, torch.float32)
+    assert not pallas_gemm_rows.supported(192, torch.float32)
     assert not pallas_gemm_rows.supported(128, torch.float64)
     assert [pallas_gemm_rows._bucket(n) for n in (0, 1, 8, 9, 13)] == [8, 8, 8, 16, 16]
 

@@ -114,7 +114,9 @@ def test_make_plan_matches_jax(accum):
     ((128, torch.float32, 8, 1, (4, 4)), "rows"),  # no pair_cap >= 1024 gate
     ((128, torch.bfloat16, 8, 1, (4, 4)), "rows"),
     ((128, torch.float32, 8, 1, None), "pallas"),
-    ((256, torch.float32, 8, 1, (4, 4)), "pallas"),
+    ((256, torch.float32, 8, 1, (4, 4)), "rows"),
+    ((384, torch.bfloat16, 8, 1, (4, 4)), "rows"),
+    ((192, torch.float32, 8, 1, (4, 4)), "xla"),
     ((32, torch.float32, 8, 1, (4, 4)), "fine"),
     ((32, torch.float32, 8, 1, None), "xla"),
     ((8, torch.float32, 8, 1, (4, 4)), "xla"),
