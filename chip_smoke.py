@@ -207,7 +207,16 @@ final line):
     the frozen plan's aligned decision, the frozen aligned and generic
     routed products and the single-device product against each other and
     an f64 oracle on 64 sampled blocks, their call times in turns, device
-    time and launches per call.
+    time and launches per call;
+22. (run after phase 21, in its own process: ``python3 chip_smoke.py
+    --phase22`` runs it alone) the members the surface walk of
+    tests/test_torch_surface.py requires: BlockMatrix.block_rows,
+    block_cols, make_id and density of B2's A (16384^2, leaf 32, 13 107
+    blocks) and of B4 at leaf 256, each also with padding slots, computed on
+    the card with no host sync and held equal to numpy's from the host
+    copy of the ids (density bitwise, also on a 2 x 3 grid of 5 blocks,
+    whose count a reciprocal would round differently); FineFlat.fr of B2
+    (8).  It launches no kernel.
 
 Phase 2 also prints each fine-kernel launch's k-chunk, shared memory,
 occupancy, registers and spills at B2's B row cap.  Prints the card line
@@ -3863,26 +3872,32 @@ def wide_leaf_path(card) -> dict:
     return {"launches": launches, "numbers": numbers}
 
 
-def wide_leaf_phase(card) -> dict:
-    """Phase 21 in its own process (`python3 chip_smoke.py --phase21`):
-    its report relayed, its stderr under build/phase21.err, exit 0 or
-    raise.  Prints leaf 256's B4full device time beside phase 15's leaf
-    128.  Returns its kernel launches."""
+def phase_process(phase: str, timeout: int):
+    """`python3 chip_smoke.py --<phase>` in its own process: its report
+    relayed, its stderr under build/<phase>.err, exit 0 or raise.  Returns
+    the JSON object of its last line."""
     root = os.path.dirname(os.path.abspath(__file__))
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--phase21"],
-                          capture_output=True, text=True, timeout=600, cwd=root)
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), f"--{phase}"],
+                          capture_output=True, text=True, timeout=timeout, cwd=root)
     os.makedirs(os.path.join(root, "build"), exist_ok=True)
-    with open(os.path.join(root, "build", "phase21.err"), "w") as f:
+    with open(os.path.join(root, "build", f"{phase}.err"), "w") as f:
         f.write(proc.stderr)
     lines = proc.stdout.strip().splitlines()
     for line in lines[:-1]:
         print(line)
     if proc.returncode != 0:
         for line in proc.stderr.splitlines()[-30:]:
-            print(f"[phase21] {line}")
-        raise AssertionError(f"phase 21 exited {proc.returncode}")
-    rec = json.loads(lines[-1])
+            print(f"[{phase}] {line}")
+        raise AssertionError(f"{phase} exited {proc.returncode}")
+    return json.loads(lines[-1])
+
+
+def wide_leaf_phase(card) -> dict:
+    """Phase 21 in its own process (`python3 chip_smoke.py --phase21`).
+    Prints leaf 256's B4full device time beside phase 15's leaf 128.
+    Returns its kernel launches."""
+    t0 = time.perf_counter()
+    rec = phase_process("phase21", 600)
     full = rec["numbers"]["B4full"]
     leaf128 = LEAF128.get("B4full device ms")
     print(f"[phase21] {card}: B4full device time a call in rows_spgemm, leaf 128 (phase 15) "
@@ -3893,10 +3908,98 @@ def wide_leaf_phase(card) -> dict:
     return rec["launches"]
 
 
-def phase21_main() -> int:
-    """`python3 chip_smoke.py --phase21`: phase 21 alone (the kernels it
-    needs built if they are not), its last line one JSON object of its
-    launches and numbers."""
+# Phase 22: the members the surface walk (tests/test_torch_surface.py)
+# required of the port, on the card, in its own process
+# (`python3 chip_smoke.py --phase22`).
+
+
+def host_members(ids, nbc):
+    """numpy's block rows, block cols and make_id of the two from the host
+    copy of the ids: int32, padding SENTINEL, make_id wrapping in int32 on
+    padding as the card's int32 arithmetic does."""
+    s = np.int32(np.iinfo(np.int32).max)
+    valid = ids != s
+    rows = np.where(valid, ids // nbc, s).astype(np.int32)
+    cols = np.where(valid, ids % nbc, s).astype(np.int32)
+    made = (rows.astype(np.int64) * nbc + cols).astype(np.int32)
+    return rows, cols, made
+
+
+def members_on_card(label, A) -> None:
+    """block_rows, block_cols, make_id and density of A on the card with no
+    host sync, against numpy's from the host copy of the ids; density
+    bitwise against numpy's float32 division."""
+    import torch
+
+    with no_host_sync():
+        rows, cols = A.block_rows(), A.block_cols()
+        made = A.make_id(rows, cols)
+        dens = A.density()
+    torch.cuda.synchronize()
+    want = host_members(A.ids.cpu().numpy(), A.nb_cols)
+    for name, got, w in zip(("block_rows", "block_cols", "make_id"), (rows, cols, made), want):
+        if got.device != A.device or got.dtype != torch.int32:
+            raise AssertionError(f"{label} {name}: {got.dtype} on {got.device}")
+        if not np.array_equal(got.cpu().numpy(), w):
+            raise AssertionError(f"{label} {name} differs from numpy's")
+    nnz, grid = int(A.nnz), A.nb_rows * A.nb_cols
+    want_d = np.float32(nnz) / np.float32(grid)
+    got_d = dens.cpu().numpy()
+    if dens.device != A.device or got_d.shape != () or got_d.tobytes() != want_d.tobytes():
+        raise AssertionError(f"{label} density {got_d!r} on {dens.device}, numpy {want_d!r}")
+    if A.make_id(A.nb_rows - 1, A.nb_cols - 1) != grid - 1:
+        raise AssertionError(f"{label} make_id on Python ints")
+    print(f"[phase22] {label}: {nnz} blocks in {A.cap} slots: block_rows, block_cols, make_id "
+          f"equal numpy's (int32, padding included); density {float(got_d)!r} = {nnz}/{grid} "
+          f"bitwise; no host sync")
+
+
+def members_path() -> dict:
+    """Phase 22's work, in this process.  Launches no kernel; returns its
+    wall time."""
+    import torch
+
+    import hierarchical_block_sparse_lib_tpu_torch as hbsm
+    from hierarchical_block_sparse_lib_tpu_torch.utils.generators import random_block_matrix
+
+    t0 = time.perf_counter()
+    for label, args in (("B2 16384^2 leaf 32", (16384, 32, 0.05, 2)),
+                        ("B4 8192^2 leaf 256", (8192, 256, 0.5, 4))):
+        A = random_block_matrix(*args[:3], seed=args[3])
+        members_on_card(label, A)
+        members_on_card(label + " with 5 padding slots", hbsm.repack(A, A.cap + 5))
+        if args[1] == 32:
+            if int(A.nnz) != 13107:
+                raise AssertionError(f"B2 holds {int(A.nnz)} blocks, not 13 107")
+            fr = hbsm.fine_pack(A).fr
+            if fr != 8:
+                raise AssertionError(f"B2 FineFlat.fr {fr}, expected 8")
+            print(f"[phase22] {label}: FineFlat.fr {fr}")
+        del A
+    # 5 of 6 blocks: numpy's 5/6 is 0.8333333, 5 * (1/6) is 0.8333334.
+    d = np.ones((64, 96), np.float32)
+    d[32:, 64:] = 0.0
+    G = hbsm.from_dense(torch.from_numpy(d).to(DEVICE), block_size=32)
+    members_on_card("2 x 3 grid of 5 blocks", G)
+    recip = float(G.nnz.to(torch.float32) / 6)
+    print(f"[phase22] 2 x 3 grid: a Python divisor gives {recip!r} on the card, density "
+          f"{float(G.density())!r}")
+    seconds = time.perf_counter() - t0
+    print(f"[phase22] {seconds:.1f} s")
+    return {"seconds": seconds}
+
+
+def members_phase() -> None:
+    """Phase 22 in its own process (`python3 chip_smoke.py --phase22`)."""
+    t0 = time.perf_counter()
+    phase_process("phase22", 300)
+    print(f"[phase22] phase wall {time.perf_counter() - t0:.1f} s (its own process)")
+
+
+def phase_main(phase: str) -> int:
+    """`python3 chip_smoke.py --phase21` or `--phase22`: that phase alone
+    (phase 21's kernels built if they are not), its last line one JSON
+    object (phase 21's launches and numbers, phase 22's wall time)."""
     import torch
 
     if not torch.cuda.is_available():
@@ -3904,10 +4007,11 @@ def phase21_main() -> int:
         return 2
     from hierarchical_block_sparse_lib_tpu_torch.kernels import _build
 
-    _build.load_all(["gemm_rows", "norms", "gemm_stream"])
+    if phase == "--phase21":
+        _build.load_all(["gemm_rows", "norms", "gemm_stream"])
     card = card_line()
     print(card)
-    print(json.dumps(wide_leaf_path(card)))
+    print(json.dumps(wide_leaf_path(card) if phase == "--phase21" else members_path()))
     return 0
 
 
@@ -4097,6 +4201,9 @@ def main() -> int:
     # Phase 21: the row-panel kernel at leaf 256, in a subprocess.
     p21 = wide_leaf_phase(card)
 
+    # Phase 22: the members the surface walk requires, in a subprocess.
+    members_phase()
+
     entries["fine_spgemm"] = dict(
         max_abs_err=fine_err, ms=fine_ms, plain_ms=fine_plain_ms,
         bound=fine_bound, library_ms=None,
@@ -4155,4 +4262,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(phase21_main() if sys.argv[1:] == ["--phase21"] else main())
+    phase = sys.argv[1:]
+    sys.exit(phase_main(phase[0]) if phase in (["--phase21"], ["--phase22"]) else main())

@@ -66,11 +66,34 @@ class BlockMatrix:
     def device(self) -> torch.device:
         return self.data.device
 
+    # ---- id <-> (block_row, block_col) ------------------------------------
+    def block_rows(self) -> torch.Tensor:
+        """Block-row of each slot (int32[cap], on the matrix's device);
+        padding slots give SENTINEL."""
+        return torch.where(self.valid_mask(), self.ids // self.nb_cols, SENTINEL)
+
+    def block_cols(self) -> torch.Tensor:
+        return torch.where(self.valid_mask(), self.ids % self.nb_cols, SENTINEL)
+
     def valid_mask(self) -> torch.Tensor:
         return self.ids != SENTINEL
 
+    def make_id(self, brow, bcol):
+        return brow * self.nb_cols + bcol
+
+    # ---- convenience -------------------------------------------------------
     def with_data(self, data: torch.Tensor) -> "BlockMatrix":
         return dataclasses.replace(self, data=data)
+
+    def density(self) -> torch.Tensor:
+        """Fraction of blocks stored: a 0-dim float32 tensor on the matrix's
+        device, computed there (no host read).  The block count is a device
+        tensor too: a Python divisor would become a multiply by its
+        reciprocal on the card, which rounds differently from the
+        reference's division."""
+        blocks = torch.full((), self.nb_rows * self.nb_cols, dtype=torch.float32,
+                            device=self.nnz.device)
+        return self.nnz.to(torch.float32) / blocks
 
     def __repr__(self):  # pragma: no cover - debug aid
         return (

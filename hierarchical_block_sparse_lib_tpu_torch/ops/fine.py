@@ -60,6 +60,11 @@ class FineFlat:
         return -(-self.n_cols // self.block_size)
 
     @property
+    def fr(self) -> int:
+        """Flat rows of one payload: ``b*b // 128``."""
+        return (self.block_size * self.block_size) // 128
+
+    @property
     def device(self) -> torch.device:
         return self.data.device
 

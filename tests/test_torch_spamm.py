@@ -186,14 +186,16 @@ def _host_bound(A, B, tau):
     """The skipped pairs' norm products, summed by a plain loop."""
     an = np.sqrt(tx.block_frob_squared(A).numpy())
     bn = np.sqrt(tx.block_frob_squared(B).numpy())
-    ar, ac = (A.ids // A.nb_cols).numpy(), (A.ids % A.nb_cols).numpy()
-    br = (B.ids // B.nb_cols).numpy()
+    ar, ac = A.block_rows().numpy(), A.block_cols().numpy()
+    br = B.block_rows().numpy()
     bound = 0.0
     for i in range(len(ar)):
-        if A.ids[i] == SENTINEL:
+        if ar[i] >= A.nb_rows:
             continue
         for j in range(len(br)):
-            if B.ids[j] != SENTINEL and br[j] == ac[i] and an[i] * bn[j] <= tau:
+            if br[j] >= B.nb_rows or br[j] != ac[i]:
+                continue
+            if an[i] * bn[j] <= tau:
                 bound += an[i] * bn[j]
     return bound
 
