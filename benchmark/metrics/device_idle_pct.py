@@ -1,0 +1,9 @@
+"""device_idle_pct: the share of the traced window (CUDA events) in which
+no operation ran on the device, in percent."""
+
+
+def read(run):
+    t = run.trace
+    if t is None or t.busy_s <= 0 or t.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - t.busy_s / t.window_s)
