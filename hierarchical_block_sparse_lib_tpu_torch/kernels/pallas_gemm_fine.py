@@ -28,6 +28,7 @@ import ctypes
 import torch
 
 from hierarchical_block_sparse_lib_tpu_torch.core.block_matrix import SENTINEL
+from hierarchical_block_sparse_lib_tpu_torch.utils.profiling import span
 
 _PRECISIONS = {"highest": 0, "high": 1, "default": 2}
 _G8 = 8  # row-cap bucket, as the reference's
@@ -127,9 +128,10 @@ def fine_tables(a_ids, b_ids, out_ids, nbr: int, nbrB: int, nbc: int, b: int):
     """`build_tables` plus the kernel's `slot_chunks` (windows sized by
     `col_window` for leaf b): the seven tables of one structure, made once
     per plan (ops.fine.make_fine_plan)."""
-    tables = build_tables(a_ids, b_ids, out_ids, nbr, nbrB, nbc)
-    window = col_window(nbc, b_ids.shape[0], b)
-    return tables + (slot_chunks(out_ids, tables[4], nbc, window=window),)
+    with span("hbsm.symbolic"):
+        tables = build_tables(a_ids, b_ids, out_ids, nbr, nbrB, nbc)
+        window = col_window(nbc, b_ids.shape[0], b)
+        return tables + (slot_chunks(out_ids, tables[4], nbc, window=window),)
 
 
 def _operands(a_data, b_data, block_size, precision, alpha):

@@ -55,6 +55,7 @@ from hierarchical_block_sparse_lib_tpu_torch.kernels.pallas_gemm_rows import (
     CONFIG_KEYS,
     _tier,
 )
+from hierarchical_block_sparse_lib_tpu_torch.utils.profiling import span
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -119,52 +120,53 @@ def plan_groups(a, b, prefer=(16, 8, 4, 2, 1)) -> GroupPlan | None:
     """The largest G in `prefer` that the reference's rule accepts, with
     the exact per-group maxima, or None (a non-local structure, whose
     slabs approach all of B).  Host numpy on the id structure only."""
-    a_ids = a.ids.cpu().numpy().astype(np.int64)
-    b_ids = b.ids.cpu().numpy().astype(np.int64)
-    a_ids = a_ids[a_ids != SENTINEL]
-    b_ids = b_ids[b_ids != SENTINEL]
-    nbr, a_nbc = a.nb_rows, a.nb_cols
-    nbrB, nbc = b.nb_rows, b.nb_cols
-    if b.block_size % 128 != 0 or nbc > 4096 or a_ids.size == 0:
+    with span("hbsm.host_plan"):
+        a_ids = a.ids.cpu().numpy().astype(np.int64)
+        b_ids = b.ids.cpu().numpy().astype(np.int64)
+        a_ids = a_ids[a_ids != SENTINEL]
+        b_ids = b_ids[b_ids != SENTINEL]
+        nbr, a_nbc = a.nb_rows, a.nb_cols
+        nbrB, nbc = b.nb_rows, b.nb_cols
+        if b.block_size % 128 != 0 or nbc > 4096 or a_ids.size == 0:
+            return None
+        a_row, a_col = a_ids // a_nbc, a_ids % a_nbc
+        b_row = b_ids // nbc
+        b_row_start = np.searchsorted(b_row, np.arange(nbrB + 1))
+        # Exact product support per C row, from the panel widths.
+        panel_cnt = b_row_start[a_col + 1] - b_row_start[a_col]
+        pairs = int(panel_cnt.sum())
+        offs = np.concatenate([[0], np.cumsum(panel_cnt)])
+        b_col = b_ids % nbc
+        lo = b_row_start[a_col]
+        chunk = 1 << 22
+        c_ids = []
+        for s in range(0, pairs, chunk):
+            p = np.arange(s, min(s + chunk, pairs))
+            e = np.searchsorted(offs, p, side="right") - 1
+            c_ids.append(np.unique(a_row[e] * nbc + b_col[lo[e] + (p - offs[e])]))
+        u = np.unique(np.concatenate(c_ids)) if c_ids else np.zeros(0, np.int64)
+        c_row_cnt = np.bincount(u // nbc, minlength=nbr)
+        for g in prefer:
+            ngrp = -(-nbr // g)
+            gid = a_row // g
+            a_grp = np.bincount(gid, minlength=ngrp)
+            kmin = np.full(ngrp, nbrB, np.int64)
+            kmax = np.full(ngrp, -1, np.int64)
+            np.minimum.at(kmin, gid, a_col)
+            np.maximum.at(kmax, gid, a_col)
+            slab = np.where(
+                kmax >= 0,
+                b_row_start[np.minimum(kmax + 1, nbrB)] - b_row_start[np.minimum(kmin, nbrB)],
+                0,
+            )
+            c_grp = np.add.reduceat(
+                np.concatenate([c_row_cnt, np.zeros(ngrp * g - nbr, np.int64)]),
+                np.arange(0, ngrp * g, g),
+            )
+            caps = (int(a_grp.max()), int(slab.max()), int(c_grp.max()))
+            if reference_group_rule(b.block_size, a.dtype, *caps, nbc):
+                return GroupPlan(g, *caps, slab_blocks=int(slab.sum()), pairs=pairs)
         return None
-    a_row, a_col = a_ids // a_nbc, a_ids % a_nbc
-    b_row = b_ids // nbc
-    b_row_start = np.searchsorted(b_row, np.arange(nbrB + 1))
-    # Exact product support per C row, from the panel widths.
-    panel_cnt = b_row_start[a_col + 1] - b_row_start[a_col]
-    pairs = int(panel_cnt.sum())
-    offs = np.concatenate([[0], np.cumsum(panel_cnt)])
-    b_col = b_ids % nbc
-    lo = b_row_start[a_col]
-    chunk = 1 << 22
-    c_ids = []
-    for s in range(0, pairs, chunk):
-        p = np.arange(s, min(s + chunk, pairs))
-        e = np.searchsorted(offs, p, side="right") - 1
-        c_ids.append(np.unique(a_row[e] * nbc + b_col[lo[e] + (p - offs[e])]))
-    u = np.unique(np.concatenate(c_ids)) if c_ids else np.zeros(0, np.int64)
-    c_row_cnt = np.bincount(u // nbc, minlength=nbr)
-    for g in prefer:
-        ngrp = -(-nbr // g)
-        gid = a_row // g
-        a_grp = np.bincount(gid, minlength=ngrp)
-        kmin = np.full(ngrp, nbrB, np.int64)
-        kmax = np.full(ngrp, -1, np.int64)
-        np.minimum.at(kmin, gid, a_col)
-        np.maximum.at(kmax, gid, a_col)
-        slab = np.where(
-            kmax >= 0,
-            b_row_start[np.minimum(kmax + 1, nbrB)] - b_row_start[np.minimum(kmin, nbrB)],
-            0,
-        )
-        c_grp = np.add.reduceat(
-            np.concatenate([c_row_cnt, np.zeros(ngrp * g - nbr, np.int64)]),
-            np.arange(0, ngrp * g, g),
-        )
-        caps = (int(a_grp.max()), int(slab.max()), int(c_grp.max()))
-        if reference_group_rule(b.block_size, a.dtype, *caps, nbc):
-            return GroupPlan(g, *caps, slab_blocks=int(slab.sum()), pairs=pairs)
-    return None
 
 
 @dataclass(frozen=True)

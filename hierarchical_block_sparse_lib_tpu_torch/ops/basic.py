@@ -15,6 +15,7 @@ from hierarchical_block_sparse_lib_tpu_torch.core.block_matrix import (
     compact_sorted,
     first_of_run,
 )
+from hierarchical_block_sparse_lib_tpu_torch.utils.profiling import span
 
 
 def _scalar(x, like: torch.Tensor):
@@ -36,19 +37,21 @@ def add_with_info(
     Returns (C, overflow): `overflow` is True iff the union exceeded
     `cap` and trailing (highest-id) blocks were dropped.
     """
-    if (a.n_rows, a.n_cols) != (b.n_rows, b.n_cols):
-        raise ValueError("shape mismatch")
-    if a.block_size != b.block_size:
-        raise ValueError("block_size mismatch")
-    cap = cap if cap is not None else a.cap + b.cap
-    ids = torch.cat([a.ids, b.ids])
-    data = torch.cat([a.data * _scalar(alpha, a.data), b.data * _scalar(beta, b.data)])
-    out_ids, out_data, nnz = compact_sorted(ids, data, cap)
-    c = BlockMatrix(
-        ids=out_ids, data=out_data, nnz=torch.clamp(nnz, max=cap),
-        n_rows=a.n_rows, n_cols=a.n_cols, block_size=a.block_size,
-    )
-    return c, nnz > cap
+    with span("hbsm.add"):
+        if (a.n_rows, a.n_cols) != (b.n_rows, b.n_cols):
+            raise ValueError("shape mismatch")
+        if a.block_size != b.block_size:
+            raise ValueError("block_size mismatch")
+        cap = cap if cap is not None else a.cap + b.cap
+        ids = torch.cat([a.ids, b.ids])
+        data = torch.cat([a.data * _scalar(alpha, a.data), b.data * _scalar(beta, b.data)])
+        with span("hbsm.union"):
+            out_ids, out_data, nnz = compact_sorted(ids, data, cap)
+        c = BlockMatrix(
+            ids=out_ids, data=out_data, nnz=torch.clamp(nnz, max=cap),
+            n_rows=a.n_rows, n_cols=a.n_cols, block_size=a.block_size,
+        )
+        return c, nnz > cap
 
 
 def add(a: BlockMatrix, b: BlockMatrix, alpha=1.0, beta=1.0, cap: int | None = None):
@@ -60,7 +63,8 @@ def add(a: BlockMatrix, b: BlockMatrix, alpha=1.0, beta=1.0, cap: int | None = N
 
 def scale(a: BlockMatrix, alpha) -> BlockMatrix:
     """A <- alpha * A.  Structure is preserved (even for alpha == 0)."""
-    return a.with_data(a.data * _scalar(alpha, a.data))
+    with span("hbsm.scale"):
+        return a.with_data(a.data * _scalar(alpha, a.data))
 
 
 def union_merge(c_id: torch.Tensor, acc_ids: torch.Tensor, out_cap: int):
@@ -72,21 +76,22 @@ def union_merge(c_id: torch.Tensor, acc_ids: torch.Tensor, out_cap: int):
 
     One stable argsort: each input element's union slot comes back
     through the inverse permutation, an int scatter."""
-    both = torch.cat([c_id, acc_ids])
-    order = torch.argsort(both, stable=True)
-    uni = both[order]
-    validu = uni != SENTINEL
-    firstu = first_of_run(uni) & validu
-    slotu = torch.where(validu, torch.cumsum(firstu, 0) - 1, out_cap)
-    out_ids = torch.full((out_cap + 1,), SENTINEL, dtype=torch.int32, device=c_id.device)
-    out_ids[slotu.clamp(max=out_cap)] = uni.to(torch.int32)
-    n_unique = firstu.sum().to(torch.int32)
-    # Original element order[i] sits at sorted position i.
-    slot_orig = torch.empty_like(slotu)
-    slot_orig[order] = slotu
-    slot_orig = slot_orig.to(torch.int32)
-    n = c_id.shape[0]
-    return out_ids[:out_cap], slot_orig[:n], slot_orig[n:], n_unique
+    with span("hbsm.union"):
+        both = torch.cat([c_id, acc_ids])
+        order = torch.argsort(both, stable=True)
+        uni = both[order]
+        validu = uni != SENTINEL
+        firstu = first_of_run(uni) & validu
+        slotu = torch.where(validu, torch.cumsum(firstu, 0) - 1, out_cap)
+        out_ids = torch.full((out_cap + 1,), SENTINEL, dtype=torch.int32, device=c_id.device)
+        out_ids[slotu.clamp(max=out_cap)] = uni.to(torch.int32)
+        n_unique = firstu.sum().to(torch.int32)
+        # Original element order[i] sits at sorted position i.
+        slot_orig = torch.empty_like(slotu)
+        slot_orig[order] = slotu
+        slot_orig = slot_orig.to(torch.int32)
+        n = c_id.shape[0]
+        return out_ids[:out_cap], slot_orig[:n], slot_orig[n:], n_unique
 
 
 @dataclass(frozen=True)
@@ -137,28 +142,29 @@ def add_planned(a: BlockMatrix, b: BlockMatrix, plan: AddPlan, alpha=1.0, beta=1
     The reference scatter-adds both operands into the union; here each
     union slot gathers its at most one block of each operand through the
     inverted slot map, so no float accumulate runs on the device."""
-    cap = plan.out_ids.shape[0]
-    if plan.slot_in.shape[0] != a.cap + b.cap:
-        raise ValueError(
-            f"plan built for capA+capB={plan.slot_in.shape[0]}, got {a.cap}+{b.cap}"
+    with span("hbsm.union"):
+        cap = plan.out_ids.shape[0]
+        if plan.slot_in.shape[0] != a.cap + b.cap:
+            raise ValueError(
+                f"plan built for capA+capB={plan.slot_in.shape[0]}, got {a.cap}+{b.cap}"
+            )
+        mismatch = torch.zeros((), dtype=torch.bool, device=a.device)
+        for m, want in ((a, plan.a_ids), (b, plan.b_ids)):
+            if m.ids.shape != want.shape:  # a capacity change counts as drift
+                mismatch = torch.ones_like(mismatch)
+            else:
+                mismatch = mismatch | torch.any(m.ids != want)
+            # One block per slot holds only for sorted unique ids.
+            mismatch = mismatch | torch.any((m.ids[1:] == m.ids[:-1]) & m.valid_mask()[1:])
+        out_data = (
+            gather_slots(plan.slot_in[: a.cap], a, cap, alpha)
+            + gather_slots(plan.slot_in[a.cap:], b, cap, beta)
+        ).to(a.dtype)
+        c = BlockMatrix(
+            ids=plan.out_ids, data=out_data, nnz=torch.clamp(plan.nnz, max=cap),
+            n_rows=a.n_rows, n_cols=a.n_cols, block_size=a.block_size,
         )
-    mismatch = torch.zeros((), dtype=torch.bool, device=a.device)
-    for m, want in ((a, plan.a_ids), (b, plan.b_ids)):
-        if m.ids.shape != want.shape:  # a capacity change counts as drift
-            mismatch = torch.ones_like(mismatch)
-        else:
-            mismatch = mismatch | torch.any(m.ids != want)
-        # One block per slot holds only for sorted unique ids.
-        mismatch = mismatch | torch.any((m.ids[1:] == m.ids[:-1]) & m.valid_mask()[1:])
-    out_data = (
-        gather_slots(plan.slot_in[: a.cap], a, cap, alpha)
-        + gather_slots(plan.slot_in[a.cap:], b, cap, beta)
-    ).to(a.dtype)
-    c = BlockMatrix(
-        ids=plan.out_ids, data=out_data, nnz=torch.clamp(plan.nnz, max=cap),
-        n_rows=a.n_rows, n_cols=a.n_cols, block_size=a.block_size,
-    )
-    return c, (plan.nnz > cap) | mismatch
+        return c, (plan.nnz > cap) | mismatch
 
 
 def filter_blocks(a: BlockMatrix, keep: torch.Tensor) -> BlockMatrix:

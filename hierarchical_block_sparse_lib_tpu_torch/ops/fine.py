@@ -32,6 +32,7 @@ from hierarchical_block_sparse_lib_tpu_torch.ops.spgemm import (
     spgemm_symbolic,
 )
 from hierarchical_block_sparse_lib_tpu_torch.ops.spgemm import row_overflow as _row_overflow
+from hierarchical_block_sparse_lib_tpu_torch.utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -178,17 +179,18 @@ class FinePlan:
 
 def _structure(sa: BlockMatrix, sb: BlockMatrix, pair_cap, out_cap, row_caps):
     """Symbolic phase -> (out_ids, n_unique, total, raw_total, row_overflow)."""
-    _, _, c_id, total, raw_total = spgemm_symbolic(sa, sb, pair_cap)
-    valid_p = c_id != SENTINEL
-    first = first_of_run(c_id)
-    seg = torch.where(valid_p, torch.cumsum(first, 0) - 1, out_cap).clamp_(max=out_cap)
-    n_unique = (first & valid_p).sum().to(torch.int32)
-    out_ids = torch.full((out_cap + 1,), SENTINEL, dtype=torch.int32, device=c_id.device)
-    out_ids[seg] = c_id
-    out_ids = out_ids[:out_cap]
-    return out_ids, n_unique, total, raw_total, _row_overflow(
-        sb, out_ids, sa.nb_rows, row_caps
-    )
+    with span("hbsm.symbolic"):
+        _, _, c_id, total, raw_total = spgemm_symbolic(sa, sb, pair_cap)
+        valid_p = c_id != SENTINEL
+        first = first_of_run(c_id)
+        seg = torch.where(valid_p, torch.cumsum(first, 0) - 1, out_cap).clamp_(max=out_cap)
+        n_unique = (first & valid_p).sum().to(torch.int32)
+        out_ids = torch.full((out_cap + 1,), SENTINEL, dtype=torch.int32, device=c_id.device)
+        out_ids[seg] = c_id
+        out_ids = out_ids[:out_cap]
+        return out_ids, n_unique, total, raw_total, _row_overflow(
+            sb, out_ids, sa.nb_rows, row_caps
+        )
 
 
 def make_fine_plan(
@@ -224,48 +226,50 @@ def fine_matmul(
     """C = alpha * A @ B on flat payloads through the fine kernel; returns
     (FineFlat, MultiplyInfo).  `plan` (make_fine_plan) freezes the whole
     structural cost, so a planned multiply is numeric only."""
-    if a.n_cols != b.n_rows or a.block_size != b.block_size:
-        raise ValueError("inner dims/block mismatch")
-    dev = a.device
-    plan_mismatch = torch.zeros((), dtype=torch.bool, device=dev)
-    tables = None
-    if plan is None:
-        out_ids, n_unique, total, raw_total, row_overflow = _structure(
-            _shim(a), _shim(b), pair_cap, out_cap, row_caps
+    with span("hbsm.fine_matmul"):
+        if a.n_cols != b.n_rows or a.block_size != b.block_size:
+            raise ValueError("inner dims/block mismatch")
+        dev = a.device
+        plan_mismatch = torch.zeros((), dtype=torch.bool, device=dev)
+        tables = None
+        if plan is None:
+            out_ids, n_unique, total, raw_total, row_overflow = _structure(
+                _shim(a), _shim(b), pair_cap, out_cap, row_caps
+            )
+        else:
+            if plan.out_ids.shape[0] != out_cap:
+                raise ValueError("plan out_cap mismatch")
+            out_ids = plan.out_ids
+            n_unique, total, raw_total = plan.n_unique, plan.total, plan.raw_total
+            tables = plan.tables
+            row_overflow = plan.row_overflow
+            for got, want in ((a.ids, plan.a_ids), (b.ids, plan.b_ids)):
+                if got.shape != want.shape:
+                    plan_mismatch = torch.ones_like(plan_mismatch)
+                else:
+                    plan_mismatch = plan_mismatch | torch.any(got != want)
+        with span("hbsm.product"):
+            out_data = fine_spgemm(
+                a.ids, a.data, b.ids, b.data, out_ids,
+                a.nb_rows, b.nb_rows, b.nb_cols, out_cap,
+                row_caps[0], row_caps[1], precision=precision,
+                block_size=a.block_size, out_layout="flat", alpha=alpha,
+                tables=tables,
+            )
+        c = FineFlat(
+            ids=out_ids, data=out_data, nnz=torch.clamp(n_unique, max=out_cap),
+            n_rows=a.n_rows, n_cols=b.n_cols, block_size=a.block_size,
         )
-    else:
-        if plan.out_ids.shape[0] != out_cap:
-            raise ValueError("plan out_cap mismatch")
-        out_ids = plan.out_ids
-        n_unique, total, raw_total = plan.n_unique, plan.total, plan.raw_total
-        tables = plan.tables
-        row_overflow = plan.row_overflow
-        for got, want in ((a.ids, plan.a_ids), (b.ids, plan.b_ids)):
-            if got.shape != want.shape:
-                plan_mismatch = torch.ones_like(plan_mismatch)
-            else:
-                plan_mismatch = plan_mismatch | torch.any(got != want)
-    out_data = fine_spgemm(
-        a.ids, a.data, b.ids, b.data, out_ids,
-        a.nb_rows, b.nb_rows, b.nb_cols, out_cap,
-        row_caps[0], row_caps[1], precision=precision,
-        block_size=a.block_size, out_layout="flat", alpha=alpha,
-        tables=tables,
-    )
-    c = FineFlat(
-        ids=out_ids, data=out_data, nnz=torch.clamp(n_unique, max=out_cap),
-        n_rows=a.n_rows, n_cols=b.n_cols, block_size=a.block_size,
-    )
-    info = MultiplyInfo(
-        n_block_pairs=total,
-        n_out_blocks=n_unique,
-        pair_overflow=raw_total > pair_cap,
-        out_overflow=n_unique > out_cap,
-        row_overflow=row_overflow,
-        plan_mismatch=plan_mismatch,
-        n_leaf_multiplies=total,
-    )
-    return c, info
+        info = MultiplyInfo(
+            n_block_pairs=total,
+            n_out_blocks=n_unique,
+            pair_overflow=raw_total > pair_cap,
+            out_overflow=n_unique > out_cap,
+            row_overflow=row_overflow,
+            plan_mismatch=plan_mismatch,
+            n_leaf_multiplies=total,
+        )
+        return c, info
 
 
 def fine_sp2_step(

@@ -24,6 +24,7 @@ from hierarchical_block_sparse_lib_tpu_torch.ops.spgemm import (
     plan_syrk,
     spgemm,
 )
+from hierarchical_block_sparse_lib_tpu_torch.utils.profiling import span
 
 
 def matmul(
@@ -40,15 +41,16 @@ def matmul(
     Plans on the host for every call (the planner reads the ids); in a
     loop over a fixed structure use `spgemm` with precomputed capacities
     and a `make_plan` plan instead."""
-    ae = basic.transpose(a) if transpose_a else a
-    be = basic.transpose(b) if transpose_b else b
-    pc, oc, mbr, mcr = plan_spgemm_ex(ae, be)
-    gplan = plan_groups(ae, be) if pc < 16 * max(ae.nb_rows, 1) else None
-    return spgemm(
-        ae, be, pair_cap=max(pc, 1), out_cap=max(oc, 1), alpha=alpha,
-        precision=precision, backend=backend, row_caps=(mbr, mcr),
-        group_caps=gplan.caps if gplan is not None else None,
-    )
+    with span("hbsm.matmul"):
+        ae = basic.transpose(a) if transpose_a else a
+        be = basic.transpose(b) if transpose_b else b
+        pc, oc, mbr, mcr = plan_spgemm_ex(ae, be)
+        gplan = plan_groups(ae, be) if pc < 16 * max(ae.nb_rows, 1) else None
+        return spgemm(
+            ae, be, pair_cap=max(pc, 1), out_cap=max(oc, 1), alpha=alpha,
+            precision=precision, backend=backend, row_caps=(mbr, mcr),
+            group_caps=gplan.caps if gplan is not None else None,
+        )
 
 
 def syrk(a: BlockMatrix, alpha=1.0, transpose: bool = False,

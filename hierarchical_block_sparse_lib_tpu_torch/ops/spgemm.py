@@ -49,6 +49,7 @@ from hierarchical_block_sparse_lib_tpu_torch.ops.norms import (
     block_frob_squared,
     squared_threshold,
 )
+from hierarchical_block_sparse_lib_tpu_torch.utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -113,52 +114,53 @@ def _keep_by_norm(norm_filter, a_idx, b_idx) -> torch.Tensor:
 def _symbolic(a: BlockMatrix, b: BlockMatrix, pair_cap: int, norm_filter, syrk_upper: bool):
     """`spgemm_symbolic` with the norm filter given as `spamm_filter`'s
     triple (or None)."""
-    dev = a.ids.device
-    i32 = torch.int32
-    a_valid = a.valid_mask()
-    a_row = a.ids // a.nb_cols
-    a_col = torch.where(a_valid, a.ids % a.nb_cols, a.nb_cols).to(i32)
-    b_row = torch.where(b.valid_mask(), b.ids // b.nb_cols, b.nb_rows + 1).to(i32)
-    b_col = b.ids % b.nb_cols
+    with span("hbsm.symbolic"):
+        dev = a.ids.device
+        i32 = torch.int32
+        a_valid = a.valid_mask()
+        a_row = a.ids // a.nb_cols
+        a_col = torch.where(a_valid, a.ids % a.nb_cols, a.nb_cols).to(i32)
+        b_row = torch.where(b.valid_mask(), b.ids // b.nb_cols, b.nb_rows + 1).to(i32)
+        b_col = b.ids % b.nb_cols
 
-    # Row-k range of B for each A block's column k; padding rows carry
-    # the miss key nb_rows, so lo == hi == end-of-valid.
-    b_row_start = torch.searchsorted(
-        b_row, torch.arange(b.nb_rows + 1, dtype=i32, device=dev),
-        right=False, out_int32=True,
-    )
-    lo = b_row_start[torch.clamp(a_col, max=b.nb_rows).long()]
-    hi = b_row_start[torch.clamp(a_col + 1, max=b.nb_rows).long()]
-    cnt = torch.where(a_valid, hi - lo, 0)
-    offs = torch.cumsum(cnt, 0, dtype=i32)
-    raw_total = offs[-1]
+        # Row-k range of B for each A block's column k; padding rows carry
+        # the miss key nb_rows, so lo == hi == end-of-valid.
+        b_row_start = torch.searchsorted(
+            b_row, torch.arange(b.nb_rows + 1, dtype=i32, device=dev),
+            right=False, out_int32=True,
+        )
+        lo = b_row_start[torch.clamp(a_col, max=b.nb_rows).long()]
+        hi = b_row_start[torch.clamp(a_col + 1, max=b.nb_rows).long()]
+        cnt = torch.where(a_valid, hi - lo, 0)
+        offs = torch.cumsum(cnt, 0, dtype=i32)
+        raw_total = offs[-1]
 
-    # Expand: pair p belongs to A entry e = first index with offs[e] > p.
-    p = torch.arange(pair_cap, dtype=i32, device=dev)
-    e = torch.searchsorted(offs, p, right=True, out_int32=True)
-    e_c = torch.clamp(e, max=a.cap - 1).long()
-    base = torch.where(e_c > 0, offs[e_c - 1], 0)
-    t = p - base
-    valid_p = p < raw_total
-    a_idx = e_c
-    b_idx = torch.clamp(lo[e_c] + t, max=b.cap - 1).long()
-    c_row, c_col = a_row[e_c], b_col[b_idx]
-    # Each filter masks valid_p; `total` then counts the survivors.
-    if norm_filter is not None:
-        valid_p = valid_p & _keep_by_norm(norm_filter, a_idx, b_idx)
-    if syrk_upper:
-        valid_p = valid_p & (c_row <= c_col)
-    c_id = torch.where(valid_p, c_row * b.nb_cols + c_col, SENTINEL).to(i32)
-    filtered = norm_filter is not None or syrk_upper
-    total = valid_p.sum().to(i32) if filtered else raw_total
-    order = torch.argsort(c_id, stable=True)
-    return (
-        a_idx[order].to(i32),
-        b_idx[order].to(i32),
-        c_id[order],
-        total.to(i32),
-        raw_total.to(i32),
-    )
+        # Expand: pair p belongs to A entry e = first index with offs[e] > p.
+        p = torch.arange(pair_cap, dtype=i32, device=dev)
+        e = torch.searchsorted(offs, p, right=True, out_int32=True)
+        e_c = torch.clamp(e, max=a.cap - 1).long()
+        base = torch.where(e_c > 0, offs[e_c - 1], 0)
+        t = p - base
+        valid_p = p < raw_total
+        a_idx = e_c
+        b_idx = torch.clamp(lo[e_c] + t, max=b.cap - 1).long()
+        c_row, c_col = a_row[e_c], b_col[b_idx]
+        # Each filter masks valid_p; `total` then counts the survivors.
+        if norm_filter is not None:
+            valid_p = valid_p & _keep_by_norm(norm_filter, a_idx, b_idx)
+        if syrk_upper:
+            valid_p = valid_p & (c_row <= c_col)
+        c_id = torch.where(valid_p, c_row * b.nb_cols + c_col, SENTINEL).to(i32)
+        filtered = norm_filter is not None or syrk_upper
+        total = valid_p.sum().to(i32) if filtered else raw_total
+        order = torch.argsort(c_id, stable=True)
+        return (
+            a_idx[order].to(i32),
+            b_idx[order].to(i32),
+            c_id[order],
+            total.to(i32),
+            raw_total.to(i32),
+        )
 
 
 def plan_spgemm_ex(a: BlockMatrix, b: BlockMatrix):
@@ -166,9 +168,10 @@ def plan_spgemm_ex(a: BlockMatrix, b: BlockMatrix):
     The row maxima are `fine_matmul`'s `row_caps`."""
     from hierarchical_block_sparse_lib_tpu_torch.runtime import native
 
-    return native.plan_spgemm_ex(
-        a.ids.cpu().numpy(), b.ids.cpu().numpy(), a.nb_cols, b.nb_rows, b.nb_cols
-    )
+    with span("hbsm.host_plan"):
+        return native.plan_spgemm_ex(
+            a.ids.cpu().numpy(), b.ids.cpu().numpy(), a.nb_cols, b.nb_rows, b.nb_cols
+        )
 
 
 def plan_spgemm(a: BlockMatrix, b: BlockMatrix):
@@ -176,10 +179,11 @@ def plan_spgemm(a: BlockMatrix, b: BlockMatrix):
     pair_cap / out_cap."""
     from hierarchical_block_sparse_lib_tpu_torch.runtime import native
 
-    return native.plan_spgemm(
-        np.asarray(a.ids.cpu()), np.asarray(b.ids.cpu()),
-        a.nb_cols, b.nb_rows, b.nb_cols,
-    )
+    with span("hbsm.host_plan"):
+        return native.plan_spgemm(
+            np.asarray(a.ids.cpu()), np.asarray(b.ids.cpu()),
+            a.nb_cols, b.nb_rows, b.nb_cols,
+        )
 
 
 class SyrkPlan:
@@ -211,36 +215,37 @@ def plan_syrk(a: BlockMatrix) -> SyrkPlan:
     the symbolic workspace enumerates all `pairs_raw` candidates
     (pair_cap), and `pairs_upper` of them, about half, reach the numeric
     phase (gemm_cap)."""
-    ids = a.ids.cpu().numpy().astype(np.int64)
-    ids = ids[ids != SENTINEL]
-    nbc, nbr = a.nb_cols, a.nb_rows
-    row, col = ids // nbc, ids % nbc
-    # A^T in canonical sorted order; its block-rows are A's block-cols.
-    at = np.sort(col * nbr + row)
-    at_row, at_col = at // nbr, at % nbr
-    lo = np.searchsorted(at_row, col, side="left")
-    hi = np.searchsorted(at_row, col, side="right")
-    cnt = hi - lo
-    pairs_raw = int(cnt.sum())
-    offs = np.concatenate([[0], np.cumsum(cnt)])
-    max_b_row = int(np.bincount(col).max()) if ids.size else 0
-    pairs_upper = 0
-    out_ids: set = set()
-    chunk = 1 << 22
-    for s in range(0, pairs_raw, chunk):
-        p = np.arange(s, min(s + chunk, pairs_raw))
-        e = np.searchsorted(offs, p, side="right") - 1
-        j = lo[e] + p - offs[e]
-        keep = row[e] <= at_col[j]
-        pairs_upper += int(keep.sum())
-        out_ids.update(np.unique((row[e] * nbr + at_col[j])[keep]).tolist())
-    if out_ids:
-        oid = np.fromiter(out_ids, np.int64)
-        out_diag = int(np.sum(oid // nbr == oid % nbr))
-        max_c_row = int(np.bincount(oid // nbr).max())
-    else:
-        out_diag = max_c_row = 0
-    return SyrkPlan(pairs_raw, pairs_upper, len(out_ids), out_diag, max_b_row, max_c_row)
+    with span("hbsm.host_plan"):
+        ids = a.ids.cpu().numpy().astype(np.int64)
+        ids = ids[ids != SENTINEL]
+        nbc, nbr = a.nb_cols, a.nb_rows
+        row, col = ids // nbc, ids % nbc
+        # A^T in canonical sorted order; its block-rows are A's block-cols.
+        at = np.sort(col * nbr + row)
+        at_row, at_col = at // nbr, at % nbr
+        lo = np.searchsorted(at_row, col, side="left")
+        hi = np.searchsorted(at_row, col, side="right")
+        cnt = hi - lo
+        pairs_raw = int(cnt.sum())
+        offs = np.concatenate([[0], np.cumsum(cnt)])
+        max_b_row = int(np.bincount(col).max()) if ids.size else 0
+        pairs_upper = 0
+        out_ids: set = set()
+        chunk = 1 << 22
+        for s in range(0, pairs_raw, chunk):
+            p = np.arange(s, min(s + chunk, pairs_raw))
+            e = np.searchsorted(offs, p, side="right") - 1
+            j = lo[e] + p - offs[e]
+            keep = row[e] <= at_col[j]
+            pairs_upper += int(keep.sum())
+            out_ids.update(np.unique((row[e] * nbr + at_col[j])[keep]).tolist())
+        if out_ids:
+            oid = np.fromiter(out_ids, np.int64)
+            out_diag = int(np.sum(oid // nbr == oid % nbr))
+            max_c_row = int(np.bincount(oid // nbr).max())
+        else:
+            out_diag = max_c_row = 0
+        return SyrkPlan(pairs_raw, pairs_upper, len(out_ids), out_diag, max_b_row, max_c_row)
 
 
 @dataclass(frozen=True)
@@ -598,210 +603,214 @@ def spgemm(
     with a plan (``make_plan(accum_ids=accum.ids, out_cap=)``) when the
     plan's union differs from its accumulator ids.
     """
-    if (a_leaf_occ is None) != (b_leaf_occ is None):
-        raise ValueError("a_leaf_occ and b_leaf_occ go together")
-    if transpose_a:
-        a = basic.transpose(a)
-    if transpose_b:
-        b = basic.transpose(b)
-    if a.n_cols != b.n_rows or a.block_size != b.block_size:
-        raise ValueError(
-            f"inner dims/block mismatch: {a.n_cols}x{a.block_size} vs "
-            f"{b.n_rows}x{b.block_size}"
-        )
-    dev = a.device
-    if backend == "auto":
-        backend = resolve_backend(
-            a.block_size, a.dtype, b.nb_cols, pair_cap,
-            row_caps=row_caps, group_caps=group_caps,
-            filter_by_norm=filter_by_norm, syrk_upper=syrk_upper,
-        )
-    if accum_aligned:
-        if accum is None:
-            raise ValueError("accum_aligned requires accum")
-        if backend != "rows":
+    with span("hbsm.spgemm"):
+        if (a_leaf_occ is None) != (b_leaf_occ is None):
+            raise ValueError("a_leaf_occ and b_leaf_occ go together")
+        if transpose_a:
+            a = basic.transpose(a)
+        if transpose_b:
+            b = basic.transpose(b)
+        if a.n_cols != b.n_rows or a.block_size != b.block_size:
             raise ValueError(
-                f"accum_aligned requires the rows backend (got {backend!r}); "
-                "supply row_caps that fit"
+                f"inner dims/block mismatch: {a.n_cols}x{a.block_size} vs "
+                f"{b.n_rows}x{b.block_size}"
             )
-        if not alpha_is_one_static(alpha):
-            raise ValueError("accum_aligned supports alpha == 1 only")
-        if accum.cap != out_cap:
-            raise ValueError(
-                f"accum_aligned needs accum.cap == out_cap ({accum.cap} != {out_cap})"
+        dev = a.device
+        if backend == "auto":
+            backend = resolve_backend(
+                a.block_size, a.dtype, b.nb_cols, pair_cap,
+                row_caps=row_caps, group_caps=group_caps,
+                filter_by_norm=filter_by_norm, syrk_upper=syrk_upper,
             )
-    norm_filter = spamm_filter(a, b, tau) if filter_by_norm else None
-    # A stale plan gathers wrong pairs: compare the id structure it was
-    # built for (a capacity change counts as drift).
-    plan_mismatch = torch.zeros((), dtype=torch.bool, device=dev)
-
-    if plan is None:
-        a_idx, b_idx, c_id, total, raw_total = _symbolic(
-            a, b, pair_cap, norm_filter, syrk_upper)
-    else:
-        if plan.a_idx.shape[0] != pair_cap:
-            raise ValueError(
-                f"plan built for pair_cap={plan.a_idx.shape[0]}, got {pair_cap}"
-            )
-        a_idx, b_idx, c_id = plan.a_idx, plan.b_idx, plan.c_id
-        total, raw_total = plan.total, plan.raw_total
-        if plan.a_ids is not None:
-            plan_mismatch = ids_mismatch(((a.ids, plan.a_ids), (b.ids, plan.b_ids)))
-        if norm_filter is not None:
-            plan_mismatch = plan_mismatch | _norm_drift(plan, norm_filter, a, b, syrk_upper)
-    gemm_cap = pair_cap if gemm_cap is None else min(gemm_cap, pair_cap)
-    if gemm_cap < pair_cap:
-        # Survivors sort before SENTINEL padding.
-        a_idx, b_idx, c_id = a_idx[:gemm_cap], b_idx[:gemm_cap], c_id[:gemm_cap]
-    if a_leaf_occ is not None:
-        n_leaf = leaf_multiplies(a_leaf_occ, b_leaf_occ, a_idx, b_idx, c_id)
-    else:
-        n_leaf = torch.full((), -1, dtype=torch.int32, device=dev)
-
-    valid_p = c_id != SENTINEL
-    pos_acc = seg = None
-    if accum is None:
-        first = first_of_run(c_id)
-        seg = torch.where(valid_p, torch.cumsum(first, 0) - 1, out_cap)
-        n_unique = (first & valid_p).sum().to(torch.int32)
-        out_ids_pre = torch.full((out_cap + 1,), SENTINEL, dtype=torch.int32, device=dev)
-        out_ids_pre[seg.clamp(max=out_cap)] = c_id
-        out_ids_pre = out_ids_pre[:out_cap]
-    else:
-        if (accum.n_rows, accum.n_cols) != (a.n_rows, b.n_cols):
-            raise ValueError("accum shape mismatch")
-        if accum.block_size != a.block_size:
-            raise ValueError("accum block_size mismatch")
         if accum_aligned:
-            # C's structure is the accumulator's: every product block must
-            # land in one of its slots, loudly.
-            out_ids_pre, n_unique = accum.ids, accum.nnz
-            if plan is not None and plan.acc_ids is not None:
-                # The planned union equals the accumulator ids exactly when
-                # the product support lies inside them.
-                plan_mismatch = plan_mismatch | ids_mismatch(
-                    ((accum.ids, plan.acc_ids), (plan.out_ids, plan.acc_ids)))
-            else:
-                pos = torch.searchsorted(accum.ids, c_id, out_int32=True)
-                member = accum.ids[pos.clamp(max=out_cap - 1).long()] == c_id
-                plan_mismatch = plan_mismatch | torch.any(valid_p & ~member) | torch.any(
-                    (accum.ids[1:] == accum.ids[:-1]) & accum.valid_mask()[1:])
-        elif plan is not None and plan.out_ids is not None:
-            if plan.out_ids.shape[0] != out_cap:
+            if accum is None:
+                raise ValueError("accum_aligned requires accum")
+            if backend != "rows":
                 raise ValueError(
-                    f"plan union built for out_cap={plan.out_ids.shape[0]}, "
-                    f"got {out_cap}"
+                    f"accum_aligned requires the rows backend (got {backend!r}); "
+                    "supply row_caps that fit"
                 )
-            out_ids_pre = plan.out_ids
-            seg = plan.seg[:gemm_cap]
-            pos_acc, n_unique = plan.pos_acc, plan.n_unique
-            plan_mismatch = plan_mismatch | ids_mismatch(((accum.ids, plan.acc_ids),))
+            if not alpha_is_one_static(alpha):
+                raise ValueError("accum_aligned supports alpha == 1 only")
+            if accum.cap != out_cap:
+                raise ValueError(
+                    f"accum_aligned needs accum.cap == out_cap ({accum.cap} != {out_cap})"
+                )
+        norm_filter = spamm_filter(a, b, tau) if filter_by_norm else None
+        # A stale plan gathers wrong pairs: compare the id structure it was
+        # built for (a capacity change counts as drift).
+        plan_mismatch = torch.zeros((), dtype=torch.bool, device=dev)
+
+        if plan is None:
+            a_idx, b_idx, c_id, total, raw_total = _symbolic(
+                a, b, pair_cap, norm_filter, syrk_upper)
         else:
-            acc_ids = torch.where(accum.valid_mask(), accum.ids, SENTINEL).to(torch.int32)
-            out_ids_pre, seg, pos_acc, n_unique = basic.union_merge(
-                c_id, acc_ids, out_cap
-            )
-    acc_dtype = torch.promote_types(a.dtype, torch.float32)
-    if backend == "groups":
-        if group_caps is None:
-            raise ValueError("backend='groups' requires group_caps (plan_groups)")
-        if filter_by_norm or syrk_upper:
-            raise ValueError(
-                "backend='groups' supports neither filter_by_norm nor "
-                "syrk_upper; use the rows backend"
-            )
-        g_rows, a_gm, s_gm, c_gm = (int(x) for x in group_caps)
-        tables = pallas_gemm_groups.group_tables(
-            a.ids, b.ids, out_ids_pre, a.nb_rows, b.nb_rows, b.nb_cols, g_rows
-        )
-        out_data = pallas_gemm_groups.groups_spgemm(
-            a.ids, a.data, b.ids, b.data, out_ids_pre,
-            a.nb_rows, b.nb_rows, b.nb_cols, out_cap,
-            g_rows, a_gm, s_gm, c_gm, precision=precision, tables=tables,
-        )
-        rows_over = group_overflow(tables, group_caps)
-    elif backend in ("rows", "fine"):
-        if row_caps is None:
-            raise ValueError(f"backend={backend!r} requires row_caps (plan_spgemm_ex)")
-        kargs = (
-            a.ids, a.data, b.ids, b.data, out_ids_pre,
-            a.nb_rows, b.nb_rows, b.nb_cols, out_cap, row_caps[0], row_caps[1],
-        )
-        if backend == "rows":
-            rkw = {}
+            if plan.a_idx.shape[0] != pair_cap:
+                raise ValueError(
+                    f"plan built for pair_cap={plan.a_idx.shape[0]}, got {pair_cap}"
+                )
+            a_idx, b_idx, c_id = plan.a_idx, plan.b_idx, plan.c_id
+            total, raw_total = plan.total, plan.raw_total
+            if plan.a_ids is not None:
+                plan_mismatch = ids_mismatch(((a.ids, plan.a_ids), (b.ids, plan.b_ids)))
             if norm_filter is not None:
-                rkw = dict(zip(("a_norms2", "b_norms2", "tau2"), norm_filter))
-            if accum_aligned:
-                rkw["acc_data"] = accum.data
-                if not alpha_is_one_static(beta):
-                    # The kernel accumulates onto the block it loads:
-                    # pre-scale the accumulator by beta in one pass.
-                    acc = accum.data.to(acc_dtype)
-                    rkw["acc_data"] = (acc * basic._scalar(beta, acc)).to(torch.float32)
-            out_data = pallas_gemm_rows.rows_spgemm(
-                *kargs, precision=precision, triu=syrk_upper, **rkw
-            )
-        elif filter_by_norm or syrk_upper:
-            raise ValueError(
-                "backend='fine' supports neither filter_by_norm nor syrk_upper; "
-                "use the xla backend at sub-128 leaves"
-            )
+                plan_mismatch = plan_mismatch | _norm_drift(plan, norm_filter, a, b, syrk_upper)
+        gemm_cap = pair_cap if gemm_cap is None else min(gemm_cap, pair_cap)
+        if gemm_cap < pair_cap:
+            # Survivors sort before SENTINEL padding.
+            a_idx, b_idx, c_id = a_idx[:gemm_cap], b_idx[:gemm_cap], c_id[:gemm_cap]
+        if a_leaf_occ is not None:
+            n_leaf = leaf_multiplies(a_leaf_occ, b_leaf_occ, a_idx, b_idx, c_id)
         else:
-            out_data = pallas_gemm_fine.fine_spgemm(*kargs, precision=precision)
-        rows_over = row_overflow(b, out_ids_pre, a.nb_rows, row_caps)
-    elif backend == "xla":
-        out_data = _xla_numeric_accumulate(
-            a.data, b.data, a_idx, b_idx, seg,
-            (out_cap, a.block_size, b.block_size), acc_dtype, precision,
+            n_leaf = torch.full((), -1, dtype=torch.int32, device=dev)
+
+        valid_p = c_id != SENTINEL
+        pos_acc = seg = None
+        if accum is None:
+            first = first_of_run(c_id)
+            seg = torch.where(valid_p, torch.cumsum(first, 0) - 1, out_cap)
+            n_unique = (first & valid_p).sum().to(torch.int32)
+            out_ids_pre = torch.full((out_cap + 1,), SENTINEL, dtype=torch.int32, device=dev)
+            out_ids_pre[seg.clamp(max=out_cap)] = c_id
+            out_ids_pre = out_ids_pre[:out_cap]
+        else:
+            if (accum.n_rows, accum.n_cols) != (a.n_rows, b.n_cols):
+                raise ValueError("accum shape mismatch")
+            if accum.block_size != a.block_size:
+                raise ValueError("accum block_size mismatch")
+            if accum_aligned:
+                # C's structure is the accumulator's: every product block must
+                # land in one of its slots, loudly.
+                out_ids_pre, n_unique = accum.ids, accum.nnz
+                if plan is not None and plan.acc_ids is not None:
+                    # The planned union equals the accumulator ids exactly when
+                    # the product support lies inside them.
+                    plan_mismatch = plan_mismatch | ids_mismatch(
+                        ((accum.ids, plan.acc_ids), (plan.out_ids, plan.acc_ids)))
+                else:
+                    pos = torch.searchsorted(accum.ids, c_id, out_int32=True)
+                    member = accum.ids[pos.clamp(max=out_cap - 1).long()] == c_id
+                    plan_mismatch = plan_mismatch | torch.any(valid_p & ~member) | torch.any(
+                        (accum.ids[1:] == accum.ids[:-1]) & accum.valid_mask()[1:])
+            elif plan is not None and plan.out_ids is not None:
+                if plan.out_ids.shape[0] != out_cap:
+                    raise ValueError(
+                        f"plan union built for out_cap={plan.out_ids.shape[0]}, "
+                        f"got {out_cap}"
+                    )
+                out_ids_pre = plan.out_ids
+                seg = plan.seg[:gemm_cap]
+                pos_acc, n_unique = plan.pos_acc, plan.n_unique
+                plan_mismatch = plan_mismatch | ids_mismatch(((accum.ids, plan.acc_ids),))
+            else:
+                acc_ids = torch.where(accum.valid_mask(), accum.ids, SENTINEL).to(torch.int32)
+                out_ids_pre, seg, pos_acc, n_unique = basic.union_merge(
+                    c_id, acc_ids, out_cap
+                )
+        acc_dtype = torch.promote_types(a.dtype, torch.float32)
+        with span("hbsm.product"):
+            if backend == "groups":
+                if group_caps is None:
+                    raise ValueError("backend='groups' requires group_caps (plan_groups)")
+                if filter_by_norm or syrk_upper:
+                    raise ValueError(
+                        "backend='groups' supports neither filter_by_norm nor "
+                        "syrk_upper; use the rows backend"
+                    )
+                g_rows, a_gm, s_gm, c_gm = (int(x) for x in group_caps)
+                tables = pallas_gemm_groups.group_tables(
+                    a.ids, b.ids, out_ids_pre, a.nb_rows, b.nb_rows, b.nb_cols, g_rows
+                )
+                out_data = pallas_gemm_groups.groups_spgemm(
+                    a.ids, a.data, b.ids, b.data, out_ids_pre,
+                    a.nb_rows, b.nb_rows, b.nb_cols, out_cap,
+                    g_rows, a_gm, s_gm, c_gm, precision=precision, tables=tables,
+                )
+                rows_over = group_overflow(tables, group_caps)
+            elif backend in ("rows", "fine"):
+                if row_caps is None:
+                    raise ValueError(f"backend={backend!r} requires row_caps (plan_spgemm_ex)")
+                kargs = (
+                    a.ids, a.data, b.ids, b.data, out_ids_pre,
+                    a.nb_rows, b.nb_rows, b.nb_cols, out_cap, row_caps[0], row_caps[1],
+                )
+                if backend == "rows":
+                    rkw = {}
+                    if norm_filter is not None:
+                        rkw = dict(zip(("a_norms2", "b_norms2", "tau2"), norm_filter))
+                    if accum_aligned:
+                        rkw["acc_data"] = accum.data
+                        if not alpha_is_one_static(beta):
+                            # The kernel accumulates onto the block it loads:
+                            # pre-scale the accumulator by beta in one pass.
+                            acc = accum.data.to(acc_dtype)
+                            rkw["acc_data"] = (acc * basic._scalar(beta, acc)).to(torch.float32)
+                    out_data = pallas_gemm_rows.rows_spgemm(
+                        *kargs, precision=precision, triu=syrk_upper, **rkw
+                    )
+                elif filter_by_norm or syrk_upper:
+                    raise ValueError(
+                        "backend='fine' supports neither filter_by_norm nor syrk_upper; "
+                        "use the xla backend at sub-128 leaves"
+                    )
+                else:
+                    out_data = pallas_gemm_fine.fine_spgemm(*kargs, precision=precision)
+                rows_over = row_overflow(b, out_ids_pre, a.nb_rows, row_caps)
+            elif backend == "xla":
+                out_data = _xla_numeric_accumulate(
+                    a.data, b.data, a_idx, b_idx, seg,
+                    (out_cap, a.block_size, b.block_size), acc_dtype, precision,
+                )
+                rows_over = torch.zeros((), dtype=torch.bool, device=dev)
+            elif backend == "pallas":
+                out_data = pallas_gemm_stream.gather_gemm_accumulate_stream(
+                    a.data, b.data, a_idx, b_idx, seg, out_cap, precision=precision
+                )
+                rows_over = torch.zeros((), dtype=torch.bool, device=dev)
+            else:
+                raise ValueError(f"unknown backend {backend!r}")
+        # The stream kernel writes every slot too, but is held to the
+        # reference's contract, where slots no pair visits are undefined.
+        exact_fill = backend in ("rows", "groups", "fine")
+        if not (exact_fill and alpha_is_one_static(alpha) and a.dtype == out_data.dtype):
+            # Keep the all-zero padding invariant and apply alpha in one pass.
+            slot_valid = out_ids_pre != SENTINEL
+            if accum is not None and not exact_fill:
+                # Union slots that no pair reached stay zero here (beta*accum
+                # lands below).
+                hit = torch.zeros((out_cap + 1,), dtype=torch.bool, device=dev)
+                hit[seg.long().clamp(max=out_cap)] = True
+                slot_valid = slot_valid & hit[:out_cap]
+            out_data = torch.where(
+                slot_valid[:, None, None], out_data * basic._scalar(alpha, out_data), 0
+            ).to(a.dtype)
+        if accum is not None and not accum_aligned:
+            # Fused beta-accumulate as a gather-add: invert pos_acc with a small
+            # int scatter, gather accum's block per union slot (absent -> 0)
+            # and add.  pos_acc maps each valid accum slot to a unique union
+            # slot only while accum's ids are unique: check it, loudly.
+            plan_mismatch = plan_mismatch | torch.any(
+                (accum.ids[1:] == accum.ids[:-1]) & accum.valid_mask()[1:]
+            )
+            acc_blocks = basic.gather_slots(pos_acc, accum, out_cap)
+            out_data = out_data.to(acc_dtype)
+            out_data = (
+                out_data + basic._scalar(beta, out_data) * acc_blocks.to(acc_dtype)
+            ).to(a.dtype)
+        c = BlockMatrix(
+            ids=out_ids_pre, data=out_data, nnz=torch.clamp(n_unique, max=out_cap),
+            n_rows=a.n_rows, n_cols=b.n_cols, block_size=a.block_size,
         )
-        rows_over = torch.zeros((), dtype=torch.bool, device=dev)
-    elif backend == "pallas":
-        out_data = pallas_gemm_stream.gather_gemm_accumulate_stream(
-            a.data, b.data, a_idx, b_idx, seg, out_cap, precision=precision
+        info = MultiplyInfo(
+            n_block_pairs=total,
+            n_out_blocks=n_unique,
+            pair_overflow=(raw_total > pair_cap) | (total > gemm_cap),
+            out_overflow=n_unique > out_cap,
+            row_overflow=rows_over,
+            plan_mismatch=plan_mismatch,
+            n_leaf_multiplies=n_leaf,
         )
-        rows_over = torch.zeros((), dtype=torch.bool, device=dev)
-    else:
-        raise ValueError(f"unknown backend {backend!r}")
-    # The stream kernel writes every slot too, but is held to the
-    # reference's contract, where slots no pair visits are undefined.
-    exact_fill = backend in ("rows", "groups", "fine")
-    if not (exact_fill and alpha_is_one_static(alpha) and a.dtype == out_data.dtype):
-        # Keep the all-zero padding invariant and apply alpha in one pass.
-        slot_valid = out_ids_pre != SENTINEL
-        if accum is not None and not exact_fill:
-            # Union slots that no pair reached stay zero here (beta*accum
-            # lands below).
-            hit = torch.zeros((out_cap + 1,), dtype=torch.bool, device=dev)
-            hit[seg.long().clamp(max=out_cap)] = True
-            slot_valid = slot_valid & hit[:out_cap]
-        out_data = torch.where(
-            slot_valid[:, None, None], out_data * basic._scalar(alpha, out_data), 0
-        ).to(a.dtype)
-    if accum is not None and not accum_aligned:
-        # Fused beta-accumulate as a gather-add: invert pos_acc with a small
-        # int scatter, gather accum's block per union slot (absent -> 0)
-        # and add.  pos_acc maps each valid accum slot to a unique union
-        # slot only while accum's ids are unique: check it, loudly.
-        plan_mismatch = plan_mismatch | torch.any(
-            (accum.ids[1:] == accum.ids[:-1]) & accum.valid_mask()[1:]
-        )
-        acc_blocks = basic.gather_slots(pos_acc, accum, out_cap)
-        out_data = out_data.to(acc_dtype)
-        out_data = (out_data + basic._scalar(beta, out_data) * acc_blocks.to(acc_dtype)).to(a.dtype)
-    c = BlockMatrix(
-        ids=out_ids_pre, data=out_data, nnz=torch.clamp(n_unique, max=out_cap),
-        n_rows=a.n_rows, n_cols=b.n_cols, block_size=a.block_size,
-    )
-    info = MultiplyInfo(
-        n_block_pairs=total,
-        n_out_blocks=n_unique,
-        pair_overflow=(raw_total > pair_cap) | (total > gemm_cap),
-        out_overflow=n_unique > out_cap,
-        row_overflow=rows_over,
-        plan_mismatch=plan_mismatch,
-        n_leaf_multiplies=n_leaf,
-    )
-    return c, info
+        return c, info
 
 
 def _host_norms(m: BlockMatrix) -> np.ndarray:
@@ -816,10 +825,11 @@ def plan_spamm(a: BlockMatrix, b: BlockMatrix, tau: float):
     are skipped."""
     from hierarchical_block_sparse_lib_tpu_torch.runtime import native
 
-    return native.plan_spamm(
-        a.ids.cpu().numpy(), _host_norms(a), b.ids.cpu().numpy(), _host_norms(b),
-        a.nb_cols, b.nb_rows, b.nb_cols, tau,
-    )
+    with span("hbsm.host_plan"):
+        return native.plan_spamm(
+            a.ids.cpu().numpy(), _host_norms(a), b.ids.cpu().numpy(), _host_norms(b),
+            a.nb_cols, b.nb_rows, b.nb_cols, tau,
+        )
 
 
 def spamm_error_bound(a: BlockMatrix, b: BlockMatrix, tau: float) -> float:

@@ -7,6 +7,15 @@ out-params do; `device_trace` records a ``torch.profiler`` trace, and
 `device_profile` sums one by kernel: device time, launches and the idle
 share of a window of calls.
 
+Spans.  The ops open a `span` at each layer boundary, named ``hbsm.*``:
+entry spans around the public ops (``hbsm.matmul``, ``hbsm.spgemm``,
+``hbsm.fine_matmul``, ``hbsm.add``, ``hbsm.scale``) and layer spans
+inside them (``hbsm.host_plan``, ``hbsm.symbolic``, ``hbsm.product``,
+``hbsm.union``).  Under an active ``torch.profiler`` profile a span is a
+``record_function`` range, so it lands in the trace on the profiler's
+clock beside the device operations it launched; otherwise it is one
+shared no-op, at the cost of one flag test.
+
 Timing.  The JAX package timed the TPU with a chained differential
 (bench.py's `bench_chained`) because that backend served cached results
 and its `block_until_ready` did not block.  CUDA has neither quirk, so
@@ -30,6 +39,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 
 # NVIDIA H100 SXM data sheet at 700 W, dense: operations per second by
@@ -44,6 +54,18 @@ import torch
 PEAK_OPS = {"fp32": 67e12, "tf32": 495e12, "bf16": 989e12,
             "tf32x3": 495e12 / 3, "bf16x3": 989e12 / 3}
 HBM_BYTES = 3.35e12
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``torch.profiler.record_function(name)`` range while a
+    ``torch.profiler`` profile is active, else one shared no-op context.
+    Use it in a ``with``, so the range closes when the body raises."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 def bound(ops: float, nbytes: float, kind: str = "fp32"):
