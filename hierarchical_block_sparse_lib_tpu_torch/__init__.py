@@ -11,10 +11,11 @@ package imports torch and numpy, never jax.
 Ported so far: the fine-leaf chain (``fine_pack`` -> ``make_fine_plan``
 -> ``fine_matmul`` -> ``fine_add``/``fine_scale`` -> ``fine_unpack``) on
 the Hopper kernel of ``kernels/pallas_gemm_fine.py::fine_spgemm``; SP2
-purification at 128-wide leaves (``profile_purify`` -> ``plan_purify``
--> ``purify_scan``, and ``purify``, over ``spgemm`` and ``truncate``) on
-the kernels of ``kernels/pallas_gemm_rows.py::rows_spgemm``,
-``kernels/pallas_gemm_stream.py`` and ``kernels/pallas_norms.py``; and
+purification (``profile_purify`` -> ``plan_purify`` -> ``purify_scan``,
+``PurifyEngine`` and ``purify``, over ``spgemm`` and ``truncate``) at
+128-wide leaves on the kernels of ``kernels/pallas_gemm_rows.py::rows_spgemm``,
+``kernels/pallas_gemm_stream.py`` and ``kernels/pallas_norms.py``, and at
+16/32/64-wide leaves on the fine kernel; and
 the eager ``matmul`` with ``plan_groups`` on the row-group kernel of
 ``kernels/pallas_gemm_groups.py``; and the occupancy tiers, whose dense
 products are batched `torch.bmm`: the column-slab tier ``spgemm_colslab``

@@ -32,6 +32,7 @@ from hierarchical_block_sparse_lib_tpu_torch.ops.spgemm import (
     spgemm,
 )
 from hierarchical_block_sparse_lib_tpu_torch.ops.truncate import truncate
+from hierarchical_block_sparse_lib_tpu_torch.utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -233,29 +234,30 @@ def purify_scan(
     With `plans` (from `plan_purify`, same capacities), each step reuses
     its precomputed structure and runs only the numeric phase, the
     gather-add and the truncation (and, when `symmetric`, the mirror)."""
-    cap = out_cap if cap is None else cap
-    # The initial repack may drop input blocks: fold that into step 0's
-    # repack_overflow so it is never silent.
-    init_ovf = x.nnz > cap
-    x = repack_mod.repack(x, cap)
-    if plans is not None and tuple(plans.expected_ids.shape) != (n_steps, cap):
-        raise ValueError(
-            f"plans built for (n_steps, cap)={tuple(plans.expected_ids.shape)}, "
-            f"got ({n_steps}, {cap})"
-        )
-    stats = []
-    for k in range(n_steps):
-        x, s = sp2_step(
-            x, tau, pair_cap=pair_cap, out_cap=out_cap,
-            target_trace=target_trace, backend=backend, cap=cap,
-            row_caps=row_caps, symmetric=symmetric,
-            plan=None if plans is None else plans.step(k),
-        )
-        stats.append(s)
-    stats = _stack_stats(stats)
-    ovf = stats.repack_overflow.clone()
-    ovf[0] |= init_ovf
-    return x, dataclasses.replace(stats, repack_overflow=ovf)
+    with span("hbsm.purify"):
+        cap = out_cap if cap is None else cap
+        # The initial repack may drop input blocks: fold that into step 0's
+        # repack_overflow so it is never silent.
+        init_ovf = x.nnz > cap
+        x = repack_mod.repack(x, cap)
+        if plans is not None and tuple(plans.expected_ids.shape) != (n_steps, cap):
+            raise ValueError(
+                f"plans built for (n_steps, cap)={tuple(plans.expected_ids.shape)}, "
+                f"got ({n_steps}, {cap})"
+            )
+        stats = []
+        for k in range(n_steps):
+            x, s = sp2_step(
+                x, tau, pair_cap=pair_cap, out_cap=out_cap,
+                target_trace=target_trace, backend=backend, cap=cap,
+                row_caps=row_caps, symmetric=symmetric,
+                plan=None if plans is None else plans.step(k),
+            )
+            stats.append(s)
+        stats = _stack_stats(stats)
+        ovf = stats.repack_overflow.clone()
+        ovf[0] |= init_ovf
+        return x, dataclasses.replace(stats, repack_overflow=ovf)
 
 
 def purify(
@@ -324,64 +326,68 @@ class PurifyEngine:
         self.n_replans = 0
 
     def _replan(self, x: BlockMatrix) -> None:
-        prof = profile_purify(
-            x, self.n_steps, self.tau, target_trace=self.target_trace,
-            backend=self.backend, margin=self.margin,
-        )
-        # Pow2-bucket the envelope so nearby structures share capacities.
-        self.prof = dataclasses.replace(
-            prof,
-            pair_cap=_next_pow2(prof.pair_cap),
-            out_cap=_next_pow2(prof.out_cap),
-            cap=_next_pow2(prof.cap),
-            row_caps=tuple(_next_pow2(r) for r in prof.row_caps),
-        )
-        self.plans = plan_purify(
-            x, self.n_steps, self.tau, self.prof,
-            target_trace=self.target_trace, backend=self.backend,
-            symmetric=self.symmetric,
-        )
-        self.n_replans += 1
+        with span("hbsm.replan"):
+            prof = profile_purify(
+                x, self.n_steps, self.tau, target_trace=self.target_trace,
+                backend=self.backend, margin=self.margin,
+            )
+            # Pow2-bucket the envelope so nearby structures share capacities.
+            self.prof = dataclasses.replace(
+                prof,
+                pair_cap=_next_pow2(prof.pair_cap),
+                out_cap=_next_pow2(prof.out_cap),
+                cap=_next_pow2(prof.cap),
+                row_caps=tuple(_next_pow2(r) for r in prof.row_caps),
+            )
+            self.plans = plan_purify(
+                x, self.n_steps, self.tau, self.prof,
+                target_trace=self.target_trace, backend=self.backend,
+                symmetric=self.symmetric,
+            )
+            self.n_replans += 1
 
     @staticmethod
     def _bad(stats: PurificationStats) -> bool:
-        return bool(torch.any(
-            stats.plan_mismatch | stats.pair_overflow
-            | stats.out_overflow | stats.repack_overflow
-        ))
+        with span("hbsm.engine_check"):
+            return bool(torch.any(
+                stats.plan_mismatch | stats.pair_overflow
+                | stats.out_overflow | stats.repack_overflow
+            ))
 
     def _stale(self, x: BlockMatrix) -> bool:
         """Compare the iterate's structure with the planned step-0 input
         before running, so a drifted input replans at once."""
-        if int(x.nnz) > self.prof.cap:
-            return True
-        got = x.ids.cpu().numpy()
-        exp = self.plans.expected_ids[0].cpu().numpy()
-        got = got[got != SENTINEL]
-        exp = exp[exp != SENTINEL]
-        return got.shape != exp.shape or bool(np.any(got != exp))
+        with span("hbsm.engine_check"):
+            if int(x.nnz) > self.prof.cap:
+                return True
+            got = x.ids.cpu().numpy()
+            exp = self.plans.expected_ids[0].cpu().numpy()
+            got = got[got != SENTINEL]
+            exp = exp[exp != SENTINEL]
+            return got.shape != exp.shape or bool(np.any(got != exp))
 
     def run(self, x: BlockMatrix):
         """One purification at the cached plan; replans and reruns when the
         structure drifted.  Returns (X_final, stacked stats)."""
-        if self.plans is None or self._stale(x):
-            self._replan(x)
-        kw = dict(
-            target_trace=self.target_trace, backend=self.backend,
-            plans=self.plans, symmetric=self.symmetric, **self.prof.kwargs(),
-        )
-        xf, stats = purify_scan(x, self.n_steps, self.tau, **kw)
-        if self._bad(stats):
-            self._replan(x)
-            kw["plans"] = self.plans
-            kw.update(self.prof.kwargs())
+        with span("hbsm.purify"):
+            if self.plans is None or self._stale(x):
+                self._replan(x)
+            kw = dict(
+                target_trace=self.target_trace, backend=self.backend,
+                plans=self.plans, symmetric=self.symmetric, **self.prof.kwargs(),
+            )
             xf, stats = purify_scan(x, self.n_steps, self.tau, **kw)
             if self._bad(stats):
-                raise RuntimeError(
-                    "PurifyEngine: overflow/mismatch persists after a fresh "
-                    "replan: inspect stats/profile"
-                )
-        return xf, stats
+                self._replan(x)
+                kw["plans"] = self.plans
+                kw.update(self.prof.kwargs())
+                xf, stats = purify_scan(x, self.n_steps, self.tau, **kw)
+                if self._bad(stats):
+                    raise RuntimeError(
+                        "PurifyEngine: overflow/mismatch persists after a fresh "
+                        "replan: inspect stats/profile"
+                    )
+            return xf, stats
 
 
 def _next_pow2(n: int) -> int:

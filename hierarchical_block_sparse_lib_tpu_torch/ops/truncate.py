@@ -20,6 +20,7 @@ from hierarchical_block_sparse_lib_tpu_torch.ops.norms import (
     squared_threshold,
     subtree_node_norms2,
 )
+from hierarchical_block_sparse_lib_tpu_torch.utils.profiling import span
 
 
 def truncate(
@@ -39,33 +40,34 @@ def truncate(
     `kept` is the survivor count before the clamp: ``kept > cap`` means
     trailing (highest-id) survivors were dropped.
     """
-    # Threshold at the norm's accumulation type; a number is squared on
-    # the host, so no scalar is copied to the device.
-    tdt = torch.promote_types(a.dtype, torch.float32)
-    if subtree_level is not None:
-        keys, node_norms2 = subtree_node_norms2(a, subtree_level)
-        keep = node_norms2[keys.long()] > squared_threshold(tau, tdt)
-    elif pallas_norms.supported(a.block_size, a.dtype):
-        _, keep = pallas_norms.norms_and_keep(a.data, tau)
-    else:
-        keep = block_frob_squared(a) > squared_threshold(tau, tdt)
-    keep = keep & a.valid_mask()
-    # Stable compaction without a sort (ids are sorted): survivors' slots
-    # are cumsum(keep)-1.  Invert the slot map with a small int scatter
-    # (slot `ocap` is the trash row), then gather the blocks once; source
-    # index `icap` reads the appended SENTINEL/zero row.
-    ocap = a.cap if cap is None else cap
-    icap = a.cap
-    slot = torch.where(keep, torch.cumsum(keep, 0) - 1, ocap).clamp_(max=ocap)
-    src = torch.full((ocap + 1,), icap, dtype=torch.int64, device=a.device)
-    src[slot] = torch.arange(icap, device=a.device)
-    src = src[:ocap]
-    pad = src == icap
-    srcc = src.clamp(max=icap - 1)
-    out_ids = torch.where(pad, SENTINEL, a.ids[srcc]).to(torch.int32)
-    out_data = torch.where(pad[:, None, None], 0, a.data[srcc])
-    kept = keep.sum().to(torch.int32)
-    m = dataclasses.replace(
-        a, ids=out_ids, data=out_data, nnz=torch.clamp(kept, max=ocap)
-    )
-    return m if cap is None else (m, kept)
+    with span("hbsm.truncate"):
+        # Threshold at the norm's accumulation type; a number is squared on
+        # the host, so no scalar is copied to the device.
+        tdt = torch.promote_types(a.dtype, torch.float32)
+        if subtree_level is not None:
+            keys, node_norms2 = subtree_node_norms2(a, subtree_level)
+            keep = node_norms2[keys.long()] > squared_threshold(tau, tdt)
+        elif pallas_norms.supported(a.block_size, a.dtype):
+            _, keep = pallas_norms.norms_and_keep(a.data, tau)
+        else:
+            keep = block_frob_squared(a) > squared_threshold(tau, tdt)
+        keep = keep & a.valid_mask()
+        # Stable compaction without a sort (ids are sorted): survivors' slots
+        # are cumsum(keep)-1.  Invert the slot map with a small int scatter
+        # (slot `ocap` is the trash row), then gather the blocks once; source
+        # index `icap` reads the appended SENTINEL/zero row.
+        ocap = a.cap if cap is None else cap
+        icap = a.cap
+        slot = torch.where(keep, torch.cumsum(keep, 0) - 1, ocap).clamp_(max=ocap)
+        src = torch.full((ocap + 1,), icap, dtype=torch.int64, device=a.device)
+        src[slot] = torch.arange(icap, device=a.device)
+        src = src[:ocap]
+        pad = src == icap
+        srcc = src.clamp(max=icap - 1)
+        out_ids = torch.where(pad, SENTINEL, a.ids[srcc]).to(torch.int32)
+        out_data = torch.where(pad[:, None, None], 0, a.data[srcc])
+        kept = keep.sum().to(torch.int32)
+        m = dataclasses.replace(
+            a, ids=out_ids, data=out_data, nnz=torch.clamp(kept, max=ocap)
+        )
+        return m if cap is None else (m, kept)

@@ -9,9 +9,11 @@ share of a window of calls.
 
 Spans.  The ops open a `span` at each layer boundary, named ``hbsm.*``:
 entry spans around the public ops (``hbsm.matmul``, ``hbsm.spgemm``,
-``hbsm.fine_matmul``, ``hbsm.add``, ``hbsm.scale``) and layer spans
-inside them (``hbsm.host_plan``, ``hbsm.symbolic``, ``hbsm.product``,
-``hbsm.union``).  Under an active ``torch.profiler`` profile a span is a
+``hbsm.fine_matmul``, ``hbsm.add``, ``hbsm.scale``, and ``hbsm.purify``
+around ``purify_scan`` and ``PurifyEngine.run``) and layer spans inside
+them (``hbsm.host_plan``, ``hbsm.symbolic``, ``hbsm.product``,
+``hbsm.union``, ``hbsm.truncate``; the engine's ``hbsm.replan`` and its
+host reads ``hbsm.engine_check``).  Under an active ``torch.profiler`` profile a span is a
 ``record_function`` range, so it lands in the trace on the profiler's
 clock beside the device operations it launched; otherwise it is one
 shared no-op, at the cost of one flag test.

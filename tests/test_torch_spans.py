@@ -1,7 +1,8 @@
 """The port's profiler spans (`utils/profiling.py::span`): the ``hbsm.*``
-ranges each op records under ``torch.profiler``, their nesting, the
-shared no-op without a profiler, answers equal either way, and a span
-that closes when its op raises.  On the CPU the fine kernel's plain
+ranges each op records under ``torch.profiler`` (the chain's, and SP2's
+``hbsm.purify``, ``hbsm.replan``, ``hbsm.engine_check`` and
+``hbsm.truncate``), their nesting, the shared no-op without a profiler,
+answers equal either way, and a span that closes when its op raises.  On the CPU the fine kernel's plain
 version builds its tables without `fine_tables`, so the front door's
 product holds no ``hbsm.symbolic`` here (on the card it holds one)."""
 
@@ -151,3 +152,60 @@ def test_structure_spans(operands):
     plan = hbsm.make_add_plan(a.ids, b.ids, a.cap + b.cap)
     _, tree = traced(hbsm.add_planned, a, b, plan)
     assert tree == ["hbsm.union"]
+
+
+ENGINE_STEPS, ENGINE_TAU, ENGINE_TARGET = 2, 1e-3, 128.0
+
+
+@pytest.fixture(scope="module")
+def sp2_input():
+    """A shifted random matrix at leaf 32 (8 block rows) for the engine."""
+    a = random_block_matrix(N // 2, B, DENSITY, seed=1, device="cpu")
+    return hbsm.add(hbsm.scale(a, 0.01), hbsm.eye(N // 2, B, device="cpu"), beta=0.5)
+
+
+def names(nodes):
+    return [n if isinstance(n, str) else n[0] for n in nodes]
+
+
+def test_purify_engine_records_its_spans(sp2_input):
+    """`PurifyEngine.run` is one ``hbsm.purify``: the replan (first call)
+    or the structure check, then the scan's own ``hbsm.purify`` (each
+    step a planned product and a truncation), then the flag check."""
+    eng = hbsm.PurifyEngine(ENGINE_STEPS, ENGINE_TAU, target_trace=ENGINE_TARGET)
+    _, first = traced(eng.run, sp2_input)
+    _, again = traced(eng.run, sp2_input)
+    assert eng.n_replans == 1
+    scan = ("hbsm.purify", [("hbsm.spgemm", ["hbsm.product"]), "hbsm.truncate"] * ENGINE_STEPS)
+    assert again == [("hbsm.purify", ["hbsm.engine_check", scan, "hbsm.engine_check"])]
+    [(name, kids)] = first
+    assert name == "hbsm.purify"
+    assert names(kids) == ["hbsm.replan", "hbsm.purify", "hbsm.engine_check"]
+    assert kids[1] == scan
+    # The replan profiles and plans the trajectory: host plans, symbolic
+    # phases, unions, products and truncations, all under its span.
+    assert set(names(kids[0][1])) == {"hbsm.host_plan", "hbsm.spgemm", "hbsm.truncate",
+                                      "hbsm.symbolic", "hbsm.union"}
+
+
+def test_truncate_records_its_span(sp2_input):
+    _, tree = traced(hbsm.truncate, sp2_input, ENGINE_TAU)
+    assert tree == ["hbsm.truncate"]
+    _, tree = traced(hbsm.truncate, sp2_input, ENGINE_TAU, 1)
+    assert tree == ["hbsm.truncate"]
+
+
+def test_purify_spans_cost_nothing_without_a_profiler(sp2_input, monkeypatch):
+    on_eng = hbsm.PurifyEngine(ENGINE_STEPS, ENGINE_TAU, target_trace=ENGINE_TARGET)
+    on, _ = traced(on_eng.run, sp2_input)
+
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) with no profiler active")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    eng = hbsm.PurifyEngine(ENGINE_STEPS, ENGINE_TAU, target_trace=ENGINE_TARGET)
+    eng.run(sp2_input)
+    off = eng.run(sp2_input)
+    hbsm.truncate(sp2_input, ENGINE_TAU)
+    assert eng.n_replans == 1
+    assert torch.equal(off[0].ids, on[0].ids) and torch.equal(off[0].data, on[0].data)
