@@ -223,13 +223,22 @@ final line):
     bit equal to its plain version and to the former add (concatenate,
     compact_sorted); call times in turns with both; device time of the
     slot pass and of the block pass against the block pass's byte bound;
-    device operations a call against the former add's.
+    device operations a call against the former add's;
+24. (run after phase 23, in its own process: ``python3 chip_smoke.py
+    --phase24`` runs it alone) spgemm's fine-branch output pass at the
+    b3_sp2.planned step's capacities (262 144 slots of 32 x 32, alpha -1
+    and beta 2 on the card): bit for bit equal to its plain version and to
+    the former passes (transpose, ×alpha where, gather, ×beta add); call
+    times in turns with the plain version; device time of the pass and of
+    its slot map against the pass's byte bound; device operations a call.
 
 Every add on the card launches the union-add kernel once, so each path's
 exact launch check counts it too (phase 4's chain 1, syrk 1, the ring and
 Cannon one a shard a stage, the routed SP2 step one a shard, chebyshev
 one a term unplanned and one planned), and the JSON line's count of it,
-as of every kernel, is the sum of the checked paths' counts.
+as of every kernel, is the sum of the checked paths' counts.  Every
+spgemm on the fine backend launches the output pass once (the class's two
+B2 multiplies in phase 16, the acceptance's fine-branch products).
 
 Phase 2 also prints each fine-kernel launch's k-chunk, shared memory,
 occupancy, registers and spills at B2's B row cap.  Prints the card line
@@ -277,6 +286,8 @@ KERNELS = {
     "e3": (_CSRC + "micro_fine.cu", "scripts/micro_fine_kernel2.py:73"),
     "e12": (_CSRC + "micro_fine.cu", "scripts/micro_fine_kernel2.py:107"),
     "union_add": (_CSRC + "union_add.cu", "none: the JAX package's add is plain XLA"),
+    "fine_epilogue": (_CSRC + "fine_epilogue.cu",
+                      "none: the JAX package applies alpha and the accumulate in XLA"),
 }
 MICRO_KERNELS = ("micro", "e2", "e3", "e12")
 B3_KERNELS = ("rows_spgemm", "norms_and_keep", "block_frob_squared")
@@ -949,8 +960,10 @@ def b3_input():
 
 def wrappers():
     """Kernel name -> the wrapper that counts its launches, for the paths'
-    exact counts (the union-add: one launch an add on the card)."""
+    exact counts (the union-add: one launch an add on the card; the fine
+    epilogue: one a fine-branch spgemm)."""
     from hierarchical_block_sparse_lib_tpu_torch.kernels import (
+        fine_epilogue,
         micro_fine,
         pallas_gemm,
         pallas_gemm_fine,
@@ -971,6 +984,7 @@ def wrappers():
         "groups_spgemm": pallas_gemm_groups.groups_spgemm,
         "gather_gemm_accumulate": pallas_gemm.gather_gemm_accumulate,
         "union_add": union_add.union_add,
+        "fine_epilogue": fine_epilogue.fine_epilogue,
     }
 
 
@@ -1980,7 +1994,8 @@ def class_b2(card, b2, tmp_dir):
     launch each, bitwise equal to spgemm(backend="fine", plan=), against
     the f64 product), its time beside phase 4's planned fine_matmul;
     frob_block_trunc on a copy; get_all_values (triplets, peak host
-    memory); save/load bitwise.  Returns fine_spgemm's launches."""
+    memory); save/load bitwise.  Returns the multiplies' launches (one
+    fine_spgemm and one fine_epilogue each)."""
     import os
 
     import torch
@@ -2008,7 +2023,8 @@ def class_b2(card, b2, tmp_dir):
         c2 = HB.multiply(m, False, m, False)
         torch.cuda.synchronize()
         launches = counts(("fine_spgemm",))["fine_spgemm"]
-        launched({"fine_spgemm": 2}, "two B2 multiplies through the class")
+        got = launched({"fine_spgemm": 2, "fine_epilogue": 2},
+                       "two B2 multiplies through the class (product, output pass)")
     finally:
         api.plan_spgemm_ex = planner
     (cplan, cpc, coc, crc), = HB._plan_cache.values()
@@ -2088,7 +2104,7 @@ def class_b2(card, b2, tmp_dir):
             and int(back.nnz) == int(A.nnz)):
         raise AssertionError("B2 save/load is not bitwise")
     print(f"[class] B2 save/load on the card: bitwise, {size / 2**20:.1f} MiB file")
-    return 2
+    return got
 
 
 def syrk_b3(card, A):
@@ -2301,7 +2317,8 @@ def surface_phase(card, b1, b2, b3):
     A3, prof, plans, scan = b3
     syrk = syrk_b3(card, A3)
     sym = symmetric_b3(card, A3, prof, plans, scan)
-    out = {"fine_spgemm": fine, "rows_spgemm": syrk["rows_spgemm"] + sym["rows_spgemm"],
+    out = {"fine_spgemm": fine["fine_spgemm"], "fine_epilogue": fine["fine_epilogue"],
+           "rows_spgemm": syrk["rows_spgemm"] + sym["rows_spgemm"],
            "norms_and_keep": sym["norms_and_keep"], "union_add": syrk["union_add"]}
     print(f"[phase16] {time.perf_counter() - t0:.1f} s; launches {out}")
     return out
@@ -4115,11 +4132,101 @@ def union_add_phase(card) -> dict:
     return rec
 
 
+# Phase 24: spgemm's fine-branch output pass at the SP2 step's sizes, in its
+# own process (`python3 chip_smoke.py --phase24`).
+
+
+def fine_epilogue_path(card) -> dict:
+    """Phase 24's work, in this process: the output pass at the
+    b3_sp2.planned step's capacities (262 144 slots of 32 x 32, 172 000
+    valid, 26 600 accumulator blocks; alpha -1 and beta 2 on the card)
+    against its plain version and the former passes, bit for bit; call
+    times in turns with the plain version; device time of the pass and of
+    its slot map against the pass's byte bound; device operations a call."""
+    import torch
+
+    from hierarchical_block_sparse_lib_tpu_torch.core.block_matrix import SENTINEL
+    from hierarchical_block_sparse_lib_tpu_torch.kernels.fine_epilogue import (
+        fine_epilogue,
+        fine_epilogue_reference,
+    )
+
+    # The yardstick the tests share (tests/former_fine_output.py, no jax).
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from former_fine_output import bits, former_output, sp2_step_operands
+
+    ct, ids, acc, pos = sp2_step_operands(torch.device("cuda"), seed=24)
+    alpha, beta = torch.tensor(-1.0, device="cuda"), torch.tensor(2.0, device="cuda")
+    args = (ct, ids, alpha, acc, pos, beta)
+    torch.cuda.synchronize()
+    reset_counts()
+    got = fine_epilogue(*args)
+    torch.cuda.synchronize()
+    launched({"fine_epilogue": 1}, "the SP2 step's output pass")
+    plain = fine_epilogue_reference(*args)
+    err = float((got - plain).abs().max())
+    if not torch.equal(bits(got), bits(plain)):
+        raise AssertionError("fine epilogue kernel differs from its plain version at the SP2 step")
+    del plain
+    if not torch.equal(bits(got), bits(former_output(ct.transpose(-1, -2).contiguous(),
+                                                     ids, alpha, acc, pos, beta))):
+        raise AssertionError("fine epilogue kernel differs from the former passes at the SP2 step")
+    n_valid, n_acc = int((ids != SENTINEL).sum()), int((pos < ids.shape[0]).sum())
+    print(f"[phase24] SP2 step output ({ids.shape[0]} slots, {n_valid} valid, {n_acc} "
+          f"accumulator blocks): kernel bitwise equal to the plain version and the former "
+          f"passes; max abs err {err:.3e}")
+    del got
+    ms, plain_ms, four = alternate(lambda: fine_epilogue(*args),
+                                   lambda: fine_epilogue_reference(*args))
+    print(f"[time] {card}: fine epilogue at the SP2 step, median of 7, in turns plain, kernel, "
+          f"kernel, plain: kernel {four[0]:.3f} / {four[1]:.3f} ms, plain (the former passes) "
+          f"{four[2]:.3f} / {four[3]:.3f} ms; one-call library: none (no torch call "
+          f"transposes, scales and gathers into given slots at once)")
+    reps = 20
+    dev = device_profile("fine epilogue at the SP2 step", lambda: fine_epilogue(*args), reps,
+                         card)
+    old = device_profile("former passes at the SP2 step",
+                         lambda: fine_epilogue_reference(*args), reps, card)
+    pass_us = per_call_us(dev, reps, "fine_epilogue_kernel")
+    map_us = per_call_us(dev, reps) - pass_us
+    old_us = per_call_us(old, reps)
+    ops_new = sum(n for _, n in dev.values()) / reps
+    ops_old = sum(n for _, n in old.values()) / reps
+    # The pass reads C's valid slots and the landing accumulator blocks and
+    # writes every slot; ids and the slot map are ~0.1% of it.
+    block = ct[0].numel() * ct.element_size()
+    pass_bytes = (n_valid + n_acc + ids.shape[0]) * block
+    bound_ms, by = bound(0, pass_bytes)
+    share = bound_ms * 1e3 / pass_us if pass_us else None
+    print(f"[phase24] {card}: output pass {pass_us:.1f} us a call against its byte bound "
+          f"{bound_ms * 1e3:.1f} us ({n_valid} C blocks and {n_acc} accumulator blocks read, "
+          f"{ids.shape[0]} written, {pass_bytes / 1e9:.3f} GB at 3.35 TB/s): "
+          + ("not measured" if share is None else f"{100 * share:.1f}% of the bound")
+          + f"; slot map (memset, inversion) {map_us:.1f} us; device operations a call "
+          f"{ops_new:.1f}, the former passes {ops_old:.1f} ({old_us:.1f} us of device time)")
+    if dev and ops_new > 4:
+        raise AssertionError(f"the output pass launches {ops_new} device operations a call")
+    return {"launches": {"fine_epilogue": 1}, "numbers": {
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": by, "pass_us": pass_us, "map_us": map_us, "share": share, "ops": ops_new,
+        "former_ops": ops_old, "former_us": old_us,
+    }}
+
+
+def fine_epilogue_phase(card) -> dict:
+    """Phase 24 in its own process (`python3 chip_smoke.py --phase24`).
+    Returns its record (launches and numbers)."""
+    t0 = time.perf_counter()
+    rec = phase_process("phase24", 300)
+    print(f"[phase24] phase wall {time.perf_counter() - t0:.1f} s (its own process)")
+    return rec
+
+
 def phase_main(phase: str) -> int:
-    """`python3 chip_smoke.py --phase21`, `--phase22` or `--phase23`: that
-    phase alone (phase 21's and 23's kernels built if they are not), its
-    last line one JSON object (phase 21's and 23's launches and numbers,
-    phase 22's wall time)."""
+    """`python3 chip_smoke.py --phase21`, `--phase22`, `--phase23` or
+    `--phase24`: that phase alone (phase 21's, 23's and 24's kernels built
+    if they are not), its last line one JSON object (phase 21's, 23's and
+    24's launches and numbers, phase 22's wall time)."""
     import torch
 
     if not torch.cuda.is_available():
@@ -4131,10 +4238,12 @@ def phase_main(phase: str) -> int:
         _build.load_all(["gemm_rows", "norms", "gemm_stream"])
     if phase == "--phase23":
         _build.load_all(["gemm_fine", "union_add"])
+    if phase == "--phase24":
+        _build.load_all(["fine_epilogue"])
     card = card_line()
     print(card)
     paths = {"--phase21": wide_leaf_path, "--phase22": lambda _: members_path(),
-             "--phase23": union_add_path}
+             "--phase23": union_add_path, "--phase24": fine_epilogue_path}
     print(json.dumps(paths[phase](card)))
     return 0
 
@@ -4165,7 +4274,7 @@ def main() -> int:
     # Phase 2: build, one nvcc per source, all started together.
     t0 = time.perf_counter()
     _build.load_all(["gemm_fine", "gemm_rows", "norms", "gemm_stream", "gemm_groups",
-                     "micro_fine", "union_add"])
+                     "micro_fine", "union_add", "fine_epilogue"])
     print(f"[build] kernels ready in {time.perf_counter() - t0:.1f} s")
     for name, (secs, log) in sorted(_build.build_logs.items()):
         print(f"[build] nvcc {name}: {secs:.1f} s")
@@ -4336,6 +4445,15 @@ def main() -> int:
         library_ms=None, device_ms=u["block_us"] / 1e3 if u["block_us"] else None,
     )
 
+    # Phase 24: spgemm's fine-branch output pass at the SP2 step, in a subprocess.
+    p24 = fine_epilogue_phase(card)
+    f = p24["numbers"]
+    entries["fine_epilogue"] = dict(
+        max_abs_err=f["max_abs_err"], ms=f["ms"], plain_ms=f["plain_ms"],
+        bound=(f["bound_ms"], f["bound_by"]), library_ms=None,
+        device_ms=f["pass_us"] / 1e3 if f["pass_us"] else None,
+    )
+
     entries["fine_spgemm"] = dict(
         max_abs_err=fine_err, ms=fine_ms, plain_ms=fine_plain_ms,
         bound=fine_bound, library_ms=None,
@@ -4344,7 +4462,7 @@ def main() -> int:
         b3_launches, fine_spgemm=fine_launches, groups_spgemm=b1_launches + b4_groups,
         gather_gemm_accumulate_stream=b2t_launches + purify_launches,
         gather_gemm_accumulate=v1_launches, union_add=b2_launches["union_add"],
-        **micro_launches,
+        fine_epilogue=0, **micro_launches,
     )
     launches["rows_spgemm"] += b4_rows
     for name, n16 in p16.items():
@@ -4364,7 +4482,9 @@ def main() -> int:
           f"B3 + {b4_rows} on B4 (phase 15) + {p16['rows_spgemm']} with triu (phase 16: syrk "
           f"and the symmetric B3 path); norms_and_keep: {b3_launches['norms_and_keep']} on B3 "
           f"+ {p16['norms_and_keep']} (phase 16); fine_spgemm: {fine_launches} on B2 + "
-          f"{p16['fine_spgemm']} through the class (phase 16); union_add: "
+          f"{p16['fine_spgemm']} through the class (phase 16); fine_epilogue: "
+          f"{p16['fine_epilogue']} through the class (phase 16) and the acceptance's fine-branch "
+          f"products (phase 19); union_add: "
           f"{b2_launches['union_add']} in the B2 chain + {p16['union_add']} in syrk (phase 16) "
           f"and those in the phases below; phase 17 (SpAMM, aligned, "
           f"models, subtree, demo): {p17}; phase 18 (distribution at B5): {p18}; phase 19 "
@@ -4398,5 +4518,6 @@ def main() -> int:
 
 if __name__ == "__main__":
     phase = sys.argv[1:]
-    sys.exit(phase_main(phase[0]) if phase in (["--phase21"], ["--phase22"], ["--phase23"])
+    sys.exit(phase_main(phase[0])
+             if phase in (["--phase21"], ["--phase22"], ["--phase23"], ["--phase24"])
              else main())

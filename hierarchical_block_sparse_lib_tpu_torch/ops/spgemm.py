@@ -39,6 +39,7 @@ from hierarchical_block_sparse_lib_tpu_torch.core.block_matrix import (
     first_of_run,
 )
 from hierarchical_block_sparse_lib_tpu_torch.kernels import (
+    fine_epilogue,
     pallas_gemm_fine,
     pallas_gemm_groups,
     pallas_gemm_rows,
@@ -563,7 +564,8 @@ def spgemm(
     symbolic phase for fixed-structure iteration and is self-checked
     against the operands (`plan_mismatch`).  `accum` fuses the
     beta-accumulate: C's structure is the union of the product support
-    and accum's, and beta*accum is added by one gather-add.  `alpha` and
+    and accum's, and beta*accum is added by one gather-add (on "fine", by
+    the same output pass that applies alpha).  `alpha` and
     `beta` may be numbers or 0-dim tensors (no host sync either way).
 
     backend: "groups" (row-group kernel, b % 128 == 0; needs `group_caps`
@@ -754,7 +756,17 @@ def spgemm(
                         "use the xla backend at sub-128 leaves"
                     )
                 else:
-                    out_data = pallas_gemm_fine.fine_spgemm(*kargs, precision=precision)
+                    # One output pass (kernels/fine_epilogue.py) reads the
+                    # kernel's C^T blocks as they lie and writes D canonical:
+                    # alpha, the padding's zeros and beta*accum at once.
+                    bs = a.block_size
+                    ct = pallas_gemm_fine.fine_spgemm(
+                        *kargs, precision=precision, out_layout="flat"
+                    ).view(out_cap, bs, bs)
+                    out_data = fine_epilogue.fine_epilogue(
+                        ct, out_ids_pre, alpha, None if accum is None else accum.data,
+                        pos_acc, beta, dtype=a.dtype,
+                    )
                 rows_over = row_overflow(b, out_ids_pre, a.nb_rows, row_caps)
             elif backend == "xla":
                 out_data = _xla_numeric_accumulate(
@@ -771,8 +783,10 @@ def spgemm(
                 raise ValueError(f"unknown backend {backend!r}")
         # The stream kernel writes every slot too, but is held to the
         # reference's contract, where slots no pair visits are undefined.
-        exact_fill = backend in ("rows", "groups", "fine")
-        if not (exact_fill and alpha_is_one_static(alpha) and a.dtype == out_data.dtype):
+        exact_fill = backend in ("rows", "groups")
+        fine_done = backend == "fine"  # its output pass applied alpha and beta
+        if not (fine_done or (exact_fill and alpha_is_one_static(alpha)
+                              and a.dtype == out_data.dtype)):
             # Keep the all-zero padding invariant and apply alpha in one pass.
             slot_valid = out_ids_pre != SENTINEL
             if accum is not None and not exact_fill:
@@ -792,11 +806,12 @@ def spgemm(
             plan_mismatch = plan_mismatch | torch.any(
                 (accum.ids[1:] == accum.ids[:-1]) & accum.valid_mask()[1:]
             )
-            acc_blocks = basic.gather_slots(pos_acc, accum.data, out_cap)
-            out_data = out_data.to(acc_dtype)
-            out_data = (
-                out_data + basic._scalar(beta, out_data) * acc_blocks.to(acc_dtype)
-            ).to(a.dtype)
+            if not fine_done:
+                acc_blocks = basic.gather_slots(pos_acc, accum.data, out_cap)
+                out_data = out_data.to(acc_dtype)
+                out_data = (
+                    out_data + basic._scalar(beta, out_data) * acc_blocks.to(acc_dtype)
+                ).to(a.dtype)
         c = BlockMatrix(
             ids=out_ids_pre, data=out_data, nnz=torch.clamp(n_unique, max=out_cap),
             n_rows=a.n_rows, n_cols=b.n_cols, block_size=a.block_size,
