@@ -372,11 +372,10 @@ def pair_stream(A, B, pair_cap, out_cap):
     import torch
 
     import hierarchical_block_sparse_lib_tpu_torch as hbsm
-    from hierarchical_block_sparse_lib_tpu_torch.core.block_matrix import first_of_run
+    from hierarchical_block_sparse_lib_tpu_torch.core.block_matrix import run_slots
 
     a_idx, b_idx, c_id, _, _ = hbsm.spgemm_symbolic(A, B, pair_cap)
-    seg = torch.where(c_id != hbsm.SENTINEL, torch.cumsum(first_of_run(c_id), 0) - 1, out_cap)
-    return a_idx, b_idx, seg.to(torch.int32)
+    return a_idx, b_idx, run_slots(c_id, out_cap)[0].to(torch.int32)
 
 
 def check_close(name, got, want, tol):
@@ -1446,7 +1445,7 @@ def b2_tile128(card):
     import torch
 
     import hierarchical_block_sparse_lib_tpu_torch as hbsm
-    from hierarchical_block_sparse_lib_tpu_torch.core.block_matrix import first_of_run
+    from hierarchical_block_sparse_lib_tpu_torch.core.block_matrix import run_slots
     from hierarchical_block_sparse_lib_tpu_torch.kernels import pallas_gemm
     from hierarchical_block_sparse_lib_tpu_torch.kernels import pallas_gemm_stream as ps
     from hierarchical_block_sparse_lib_tpu_torch.ops.spgemm import plan_spgemm_ex, resolve_backend
@@ -1491,8 +1490,7 @@ def b2_tile128(card):
         raise AssertionError(f"B2-tile128 rel err {err:.3e} > 1e-5")
 
     # The v1 entry point on the same pairs, in one chunk of PAIR_CHUNK.
-    seg = torch.where(plan.c_id != hbsm.SENTINEL,
-                      torch.cumsum(first_of_run(plan.c_id), 0) - 1, oc).to(torch.int32)
+    seg = run_slots(plan.c_id, oc)[0].to(torch.int32)
     sargs = (A.data, A.data, plan.a_idx, plan.b_idx, seg, oc)
     torch.cuda.synchronize()
     reset_counts()
@@ -2775,12 +2773,11 @@ def aligned_b3(card, A):
 
 def distinct_outputs(plan) -> int:
     """A plan's distinct output (or union) blocks."""
-    import hierarchical_block_sparse_lib_tpu_torch as hbsm
-    from hierarchical_block_sparse_lib_tpu_torch.core.block_matrix import first_of_run
+    from hierarchical_block_sparse_lib_tpu_torch.core.block_matrix import run_slots
 
     if plan.n_unique is not None:
         return int(plan.n_unique)
-    return int((first_of_run(plan.c_id) & (plan.c_id != hbsm.SENTINEL)).sum())
+    return int(run_slots(plan.c_id, plan.c_id.shape[0])[2])
 
 
 def tight_caps(mul_plans, extra_out=()) -> tuple:

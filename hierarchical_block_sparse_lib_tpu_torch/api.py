@@ -30,6 +30,7 @@ from hierarchical_block_sparse_lib_tpu_torch.core import assembly
 from hierarchical_block_sparse_lib_tpu_torch.core.block_matrix import (
     BlockMatrix,
     Params,
+    is_static_one,
     resolve_device,
 )
 from hierarchical_block_sparse_lib_tpu_torch.ops import band as band_ops
@@ -231,7 +232,7 @@ class HierarchicalBlockSparseMatrix:
             ab = band_ops.band_transpose(a._band) if transpose_a else a._band
             bb = band_ops.band_transpose(b._band) if transpose_b else b._band
             cb = band_ops.band_mm(ab, bb)
-            if not (isinstance(alpha, (int, float)) and alpha == 1.0):
+            if not is_static_one(alpha):
                 cb = band_ops.band_scale(cb, alpha)
             c = a._like()
             c._band = cb

@@ -13,8 +13,8 @@ from hierarchical_block_sparse_lib_tpu_torch.core.block_matrix import (
     BlockMatrix,
     check_geometry,
     compact_sorted,
-    first_of_run,
     resolve_device,
+    run_slots,
 )
 
 
@@ -92,14 +92,12 @@ def from_coo(
         cap = max(int(torch.unique(bid).numel()), 1)
     order = torch.argsort(bid, stable=True)
     bid_s, rows_s, cols_s, vals_s = bid[order], rows[order], cols[order], vals[order]
-    first = first_of_run(bid_s)
-    slot = (torch.cumsum(first, 0) - 1).clamp_(max=cap)
-    ids = torch.full((cap + 1,), SENTINEL, dtype=torch.int32, device=device)
-    ids[slot] = bid_s.to(torch.int32)
+    slot, ids, nnz = run_slots(bid_s, cap)
+    slot.clamp_(max=cap)
     data = torch.zeros((cap + 1, b, b), dtype=vals.dtype, device=device)
     data.index_put_((slot, rows_s % b, cols_s % b), vals_s, accumulate=True)
     return BlockMatrix(
-        ids=ids[:cap], data=data[:cap], nnz=first.sum().to(torch.int32),
+        ids=ids, data=data[:cap], nnz=nnz,
         n_rows=n_rows, n_cols=n_cols, block_size=block_size,
     )
 

@@ -133,6 +133,44 @@ def first_of_run(ids_sorted: torch.Tensor) -> torch.Tensor:
     return first
 
 
+def run_slots(ids_sorted: torch.Tensor, cap: int):
+    """The slots of sorted ids with repeats: (slot, out_ids, n_unique).
+
+    `slot` (int64[m]) is each row's slot in the union of its runs, unclamped
+    (valid rows past the capacity keep their number, >= cap) and `cap` for a
+    SENTINEL row; clamp it to `cap` to index a store with a trash row
+    `cap`.  `out_ids` (int32[cap]) holds each run's id in its slot, SENTINEL
+    after the last; `n_unique` (int32[]) counts the runs, before the clamp.
+    SENTINEL rows sort last, so counting every run's first row numbers the
+    valid runs alike."""
+    valid = ids_sorted != SENTINEL
+    first = first_of_run(ids_sorted)
+    slot = torch.where(valid, torch.cumsum(first, 0) - 1, cap)
+    n_unique = (first & valid).sum().to(torch.int32)
+    out_ids = torch.full((cap + 1,), SENTINEL, dtype=torch.int32, device=ids_sorted.device)
+    out_ids[slot.clamp(max=cap)] = ids_sorted.to(torch.int32)
+    return slot, out_ids[:cap], n_unique
+
+
+def ids_mismatch(pairs) -> torch.Tensor:
+    """True when any (operand ids, ids a plan was built for) pair differs,
+    in shape or in value: a stale plan's `plan_mismatch` (0-dim bool on
+    the operands' device, no host sync)."""
+    mism = torch.zeros((), dtype=torch.bool, device=pairs[0][0].device)
+    for got, want in pairs:
+        if got.shape != want.shape:  # a capacity change counts as drift
+            mism = torch.ones_like(mism)
+        else:
+            mism = mism | torch.any(got != want)
+    return mism
+
+
+def has_duplicate_ids(ids: torch.Tensor) -> torch.Tensor:
+    """True when sorted ids repeat a valid id (0-dim bool, no host sync):
+    a slot map from them puts two blocks in one slot."""
+    return torch.any((ids[1:] == ids[:-1]) & (ids[1:] != SENTINEL))
+
+
 def compact_sorted(ids: torch.Tensor, data: torch.Tensor, cap: int):
     """Sort (ids, data) rows by id, merge duplicate ids by summation, and
     pad to `cap` with SENTINEL/zeros.
@@ -143,13 +181,8 @@ def compact_sorted(ids: torch.Tensor, data: torch.Tensor, cap: int):
     drop out-of-range indices).
     """
     order = torch.argsort(ids, stable=True)
-    ids_s = ids[order]
-    valid = ids_s != SENTINEL
-    first = first_of_run(ids_s)
-    slot = torch.cumsum(first, 0) - 1
-    slot = torch.where(valid, slot, cap).clamp_(max=cap)
-    out_ids = torch.full((cap + 1,), SENTINEL, dtype=torch.int32, device=ids.device)
-    out_ids[slot] = ids_s.to(torch.int32)
+    slot, out_ids, nnz = run_slots(ids[order], cap)
+    slot.clamp_(max=cap)
     # Scatter data straight from input order: only the int64 slot map
     # moves through the permutation, the block tensor is read once.
     slot_in = torch.empty_like(slot)
@@ -158,8 +191,20 @@ def compact_sorted(ids: torch.Tensor, data: torch.Tensor, cap: int):
         (cap + 1,) + tuple(data.shape[1:]), dtype=data.dtype, device=data.device
     )
     out_data.index_add_(0, slot_in, data)
-    nnz = (first & valid).sum().to(torch.int32)
-    return out_ids[:cap], out_data[:cap], nnz
+    return out_ids, out_data[:cap], nnz
+
+
+def is_static_one(x) -> bool:
+    """True for a number equal to 1, which scales by nothing: no pass runs
+    for it.  A tensor is never a static one (reading it would sync)."""
+    return isinstance(x, (int, float)) and float(x) == 1.0
+
+
+def scalar_factor(x, like: torch.Tensor):
+    """`x` (a number or a 0-dim tensor) as a factor for `like`: a tensor
+    is cast to `like`'s dtype on its own device (a 0-dim tensor scales a
+    tensor on any device without a host sync); a number stays a number."""
+    return x.to(like.dtype) if isinstance(x, torch.Tensor) else x
 
 
 def gather_slots(slot: torch.Tensor, data: torch.Tensor, cap: int, factor=1.0) -> torch.Tensor:
@@ -175,9 +220,26 @@ def gather_slots(slot: torch.Tensor, data: torch.Tensor, cap: int, factor=1.0) -
     if n == 0:
         return data.new_zeros((cap,) + tuple(data.shape[1:]))
     rows = data[src.clamp(max=n - 1)]
-    if isinstance(factor, torch.Tensor):
-        rows = rows * factor.to(rows.dtype)
-    elif float(factor) != 1.0:
-        rows = rows * factor
+    if not is_static_one(factor):
+        rows = rows * scalar_factor(factor, rows)
     present = (src < n).view((-1,) + (1,) * (data.dim() - 1))
     return torch.where(present, rows, 0)
+
+
+def scale_slots(out: torch.Tensor, slot_valid: torch.Tensor, alpha, dtype) -> torch.Tensor:
+    """alpha * out's blocks [cap, b, b] where `slot_valid` (bool[cap]) holds,
+    zero elsewhere, in `dtype`: a product's alpha pass, which keeps the
+    padding's blocks zero."""
+    return torch.where(slot_valid[:, None, None], out * scalar_factor(alpha, out), 0).to(dtype)
+
+
+def accumulate_slots(out: torch.Tensor, pos_acc: torch.Tensor, acc_data: torch.Tensor, beta,
+                     dtype) -> torch.Tensor:
+    """out + beta * the accumulator's blocks, gathered into out's slots
+    through `pos_acc` (`gather_slots`), in ``promote_types(dtype, float32)``,
+    then cast to `dtype`: the beta-accumulate of a product over the union
+    of its support with the accumulator's."""
+    acc_dtype = torch.promote_types(dtype, torch.float32)
+    acc_blocks = gather_slots(pos_acc, acc_data, out.shape[0])
+    out = out.to(acc_dtype)
+    return (out + scalar_factor(beta, out) * acc_blocks.to(acc_dtype)).to(dtype)

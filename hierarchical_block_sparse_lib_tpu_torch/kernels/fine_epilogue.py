@@ -25,13 +25,19 @@ import ctypes
 
 import torch
 
-from hierarchical_block_sparse_lib_tpu_torch.core.block_matrix import SENTINEL, gather_slots
-from hierarchical_block_sparse_lib_tpu_torch.kernels.union_add import _DTYPES, _scalar_arg
+from hierarchical_block_sparse_lib_tpu_torch.core.block_matrix import (
+    SENTINEL,
+    accumulate_slots,
+    is_static_one,
+    scale_slots,
+)
+from hierarchical_block_sparse_lib_tpu_torch.kernels import _build
 
-
-def _scalar(x, like: torch.Tensor):
-    """A number, or a 0-dim tensor cast to `like`'s dtype, as a factor."""
-    return x.to(like.dtype) if isinstance(x, torch.Tensor) else x
+_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+# The C entry of fine_epilogue.cu and its arguments.
+SIGNATURES = {
+    "hbsm_fine_epilogue": [_P, _P, _I, _I, _P, _I, _P, _I, _P, _D, _P, _D, _P, _P, _I, _P],
+}
 
 
 def fine_epilogue_reference(ct, out_ids, alpha=1.0, acc_data=None, pos_acc=None, beta=1.0,
@@ -42,39 +48,11 @@ def fine_epilogue_reference(ct, out_ids, alpha=1.0, acc_data=None, pos_acc=None,
     into the union (`gather_slots`), scaled by beta and added, in
     ``promote_types(dtype, float32)``."""
     out = ct.transpose(-1, -2).contiguous()
-    if not (isinstance(alpha, (int, float)) and float(alpha) == 1.0 and out.dtype == dtype):
-        out = torch.where(
-            (out_ids != SENTINEL)[:, None, None], out * _scalar(alpha, out), 0
-        ).to(dtype)
+    if not (is_static_one(alpha) and out.dtype == dtype):
+        out = scale_slots(out, out_ids != SENTINEL, alpha, dtype)
     if acc_data is None:
         return out
-    acc_dtype = torch.promote_types(dtype, torch.float32)
-    acc_blocks = gather_slots(pos_acc, acc_data, out.shape[0])
-    out = out.to(acc_dtype)
-    return (out + _scalar(beta, out) * acc_blocks.to(acc_dtype)).to(dtype)
-
-
-_LIB = None
-
-
-def _kernel_lib():
-    global _LIB
-    if _LIB is None:
-        from hierarchical_block_sparse_lib_tpu_torch.kernels import _build
-
-        lib = _build.load("fine_epilogue")
-        p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-        lib.hbsm_fine_epilogue.restype = i
-        lib.hbsm_fine_epilogue.argtypes = [p, p, i, i, p, i, p, i, p, d, p, d, p, p, i, p]
-        lib.hbsm_cuda_error_string.restype = ctypes.c_char_p
-        lib.hbsm_cuda_error_string.argtypes = [i]
-        _LIB = lib
-    return _LIB
-
-
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
+    return accumulate_slots(out, pos_acc, acc_data, beta, dtype)
 
 
 def _launch(ct, out_ids, alpha, acc_data, pos_acc, beta, dtype):
@@ -85,12 +63,12 @@ def _launch(ct, out_ids, alpha, acc_data, pos_acc, beta, dtype):
     if tuple(ct.shape[1:]) != (b, b) or b not in (16, 32, 64):
         raise ValueError(f"fine epilogue needs [cap, b, b] blocks, b in (16, 32, 64), got "
                          f"{tuple(ct.shape)}")
-    if ct.dtype != torch.float32 or dtype not in _DTYPES:
+    if ct.dtype != torch.float32 or dtype not in _build.DTYPE_CODES:
         raise ValueError(f"fine epilogue kernel needs the fine kernel's f32 blocks and an f32, "
                          f"bf16 or f64 output, got {ct.dtype} blocks and {dtype}")
     if out_ids.shape != (out_cap,) or out_ids.dtype != torch.int32 or out_ids.device != dev:
         raise ValueError("out_ids: need int32[out_cap] on the blocks' device")
-    ct, out_ids = _aligned(ct), out_ids.contiguous()
+    ct, out_ids = _build.aligned16(ct), out_ids.contiguous()
     acc_dtype = torch.promote_types(dtype, torch.float32)
     n_acc = 0
     if acc_data is not None:
@@ -103,28 +81,24 @@ def _launch(ct, out_ids, alpha, acc_data, pos_acc, beta, dtype):
             # The former passes cast the gathered blocks; the cast commutes
             # with the gather.
             acc_data = acc_data.to(acc_dtype)
-        acc_data, pos_acc = _aligned(acc_data), pos_acc.to(torch.int32).contiguous()
+        acc_data, pos_acc = _build.aligned16(acc_data), pos_acc.to(torch.int32).contiguous()
         n_acc = acc_data.shape[0]
-    alpha_dev, alpha_val = _scalar_arg(alpha, torch.float32, dev)
-    beta_dev, beta_val = _scalar_arg(beta, acc_dtype, dev)
+    alpha_dev, alpha_val = _build.scalar_arg(alpha, torch.float32, dev)
+    beta_dev, beta_val = _build.scalar_arg(beta, acc_dtype, dev)
     d = torch.empty((out_cap, b, b), dtype=dtype, device=dev)
     src = torch.empty((out_cap if acc_data is not None else 0,), dtype=torch.int32, device=dev)
-    lib = _kernel_lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.hbsm_fine_epilogue(
-            ct.data_ptr(), out_ids.data_ptr(), out_cap, b,
-            acc_data.data_ptr() if acc_data is not None else None,
-            _DTYPES[acc_data.dtype] if acc_data is not None else _DTYPES[dtype],
-            pos_acc.data_ptr() if acc_data is not None else None, n_acc,
-            alpha_dev.data_ptr() if alpha_dev is not None else None, alpha_val,
-            beta_dev.data_ptr() if beta_dev is not None else None, beta_val,
-            src.data_ptr(), d.data_ptr(), _DTYPES[dtype], stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"fine epilogue launch failed: {lib.hbsm_cuda_error_string(err).decode()}"
-        )
+    codes = _build.DTYPE_CODES
+    _build.launch(
+        _build.bind("fine_epilogue", SIGNATURES), "hbsm_fine_epilogue",
+        "fine epilogue launch failed", dev,
+        ct.data_ptr(), out_ids.data_ptr(), out_cap, b,
+        acc_data.data_ptr() if acc_data is not None else None,
+        codes[acc_data.dtype] if acc_data is not None else codes[dtype],
+        pos_acc.data_ptr() if acc_data is not None else None, n_acc,
+        alpha_dev.data_ptr() if alpha_dev is not None else None, alpha_val,
+        beta_dev.data_ptr() if beta_dev is not None else None, beta_val,
+        src.data_ptr(), d.data_ptr(), codes[dtype],
+    )
     return d
 
 

@@ -39,6 +39,7 @@ import ctypes
 import numpy as np
 import torch
 
+from hierarchical_block_sparse_lib_tpu_torch.kernels import _build
 from hierarchical_block_sparse_lib_tpu_torch.kernels.pallas_gemm_fine import tier_bmm
 
 REPS = 256  # micro's in-kernel repetitions (the TPU script's R)
@@ -189,7 +190,6 @@ def _check_e12(a_wide, panel, idx):
     return ra, nbrow
 
 
-_LIB = None
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # The C entries of micro_fine.cu and their arguments (pointers and the
 # stream as c_void_p, ints as c_int).
@@ -200,21 +200,6 @@ SIGNATURES = {
     "hbsm_e3": [_P, _I, _P, _P, _I, _P],
     "hbsm_e12": [_P] * 4 + [_I] * 5 + [_P],
 }
-
-
-def _kernel_lib():
-    global _LIB
-    if _LIB is None:
-        from hierarchical_block_sparse_lib_tpu_torch.kernels import _build
-
-        lib = _build.load("micro_fine")
-        for name, args in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.restype, fn.argtypes = _I, args
-        lib.hbsm_cuda_error_string.restype = ctypes.c_char_p
-        lib.hbsm_cuda_error_string.argtypes = [_I]
-        _LIB = lib
-    return _LIB
 
 
 def _on_card(name: str, *tensors) -> torch.device:
@@ -232,18 +217,10 @@ def _on_card(name: str, *tensors) -> torch.device:
 
 
 def _launch(name: str, device, fn, *args) -> None:
-    """Launch `fn` on the current stream of `device`, switching the current
-    device only when it is another; raise on any CUDA error."""
-    lib = _kernel_lib()
-    if device.index != torch.cuda.current_device():
-        with torch.cuda.device(device):
-            return _launch(name, device, fn, *args)
-    # The raw stream handle, from the private entry that torch.compile's
-    # generated code calls (torch 2.x): building a torch.cuda.Stream object
-    # instead costs a small kernel's whole launch again on the host.
-    err = getattr(lib, fn)(*args, torch._C._cuda_getCurrentRawStream(device.index))
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: {lib.hbsm_cuda_error_string(err).decode()}")
+    """Launch entry `fn` on the current stream of `device`; raise on any
+    CUDA error."""
+    _build.launch(_build.bind("micro_fine", SIGNATURES), fn, f"{name} launch failed", device,
+                  *args)
 
 
 def micro(at, bp, mode: str, precision: str = "highest", reps: int = REPS):

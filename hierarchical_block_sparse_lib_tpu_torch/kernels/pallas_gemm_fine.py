@@ -28,9 +28,9 @@ import ctypes
 import torch
 
 from hierarchical_block_sparse_lib_tpu_torch.core.block_matrix import SENTINEL
+from hierarchical_block_sparse_lib_tpu_torch.kernels import _build
 from hierarchical_block_sparse_lib_tpu_torch.utils.profiling import span
 
-_PRECISIONS = {"highest": 0, "high": 1, "default": 2}
 _G8 = 8  # row-cap bucket, as the reference's
 # Output slots per thread block of the kernel (a chunk of one C row), and
 # the resident blocks per SM its shared memory is sized for where not one
@@ -142,7 +142,7 @@ def _operands(a_data, b_data, block_size, precision, alpha):
     b = a_data.shape[-1] if block_size is None else block_size
     if b not in (16, 32, 64):
         raise ValueError(f"fine kernel needs b in (16,32,64), got {b}")
-    if precision not in _PRECISIONS:
+    if precision not in _build.PRECISION_CODES:
         raise ValueError(f"unknown precision {precision!r}")
     fr = (b * b) // 128
     flat_in = tuple(a_data.shape[1:]) == (fr, 128)
@@ -177,33 +177,12 @@ def _output(ct: torch.Tensor, b: int, out_layout: str) -> torch.Tensor:
     return ct.transpose(-1, -2).contiguous()
 
 
-_LIB = None
-
-
-def _kernel_lib():
-    global _LIB
-    if _LIB is None:
-        from hierarchical_block_sparse_lib_tpu_torch.kernels import _build
-
-        lib = _build.load("gemm_fine")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.hbsm_fine_spgemm.restype = i
-        lib.hbsm_fine_spgemm.argtypes = [p, i] + [p] * 9 + [i] * 5 + [p]
-        lib.hbsm_fine_spgemm_config.restype = i
-        lib.hbsm_fine_spgemm_config.argtypes = [i] * 4 + [p]
-        lib.hbsm_cuda_error_string.restype = ctypes.c_char_p
-        lib.hbsm_cuda_error_string.argtypes = [i]
-        _LIB = lib
-    return _LIB
-
-
-def _check_index(name: str, t: torch.Tensor, length: int, device) -> None:
-    if t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous():
-        raise ValueError(f"{name}: need a contiguous 1-D int32 tensor")
-    if t.shape[0] != length:
-        raise ValueError(f"{name}: length {t.shape[0]}, expected {length}")
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, operands on {device}")
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# The C entries of gemm_fine.cu and their arguments.
+SIGNATURES = {
+    "hbsm_fine_spgemm": [_P, _I] + [_P] * 9 + [_I] * 5 + [_P],
+    "hbsm_fine_spgemm_config": [_I] * 4 + [_P],
+}
 
 
 def check_blocks(name: str, t: torch.Tensor, shape: tuple, dtype, device) -> None:
@@ -268,7 +247,7 @@ def fine_spgemm(
         ("b_col", b_col, cap_b), ("c_row_start", c_row_start, nbr + 1),
         ("ccol", ccol, out_cap),
     ):
-        _check_index(name, t, n, device)
+        _build.check_index(name, t, n, device)
     if chunks.dtype != torch.int32 or chunks.dim() != 2 or chunks.shape[0] != 2 \
             or not chunks.is_contiguous() or chunks.device != device:
         raise ValueError("chunks: need slot_chunks' contiguous int32 [2, n] table")
@@ -295,19 +274,14 @@ def launch(out_ids, tables, at, bt, out_cap: int, nbr: int, nbc: int,
         raise ValueError("fine_spgemm needs 16-byte aligned payloads")
     device = at.device
     out = torch.empty((out_cap, b, b), dtype=torch.float32, device=device)
-    lib = _kernel_lib()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.hbsm_fine_spgemm(
-            chunks.data_ptr(), chunks.shape[1], out_ids.data_ptr(), ccol.data_ptr(),
-            a_row_start.data_ptr(), a_col.data_ptr(), b_row_start.data_ptr(),
-            b_col.data_ptr(), at.data_ptr(), bt.data_ptr(), out.data_ptr(), nbc,
-            _bucket(max(b_row_max, 1)), b, _PRECISIONS[precision], ctas, stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"fine_spgemm launch failed: {lib.hbsm_cuda_error_string(err).decode()}"
-        )
+    _build.launch(
+        _build.bind("gemm_fine", SIGNATURES), "hbsm_fine_spgemm", "fine_spgemm launch failed",
+        device,
+        chunks.data_ptr(), chunks.shape[1], out_ids.data_ptr(), ccol.data_ptr(),
+        a_row_start.data_ptr(), a_col.data_ptr(), b_row_start.data_ptr(),
+        b_col.data_ptr(), at.data_ptr(), bt.data_ptr(), out.data_ptr(), nbc,
+        _bucket(max(b_row_max, 1)), b, _build.PRECISION_CODES[precision], ctas,
+    )
     fine_spgemm.launches += 1
     return out
 
@@ -317,14 +291,13 @@ def launch_config(b: int, precision: str, b_row_max: int,
     """What `launch` would run, read from the library and the card: the A
     entries staged per k-chunk, dynamic shared bytes, resident blocks per
     SM, registers and local (spill) bytes per thread, threads per block."""
-    lib = _kernel_lib()
+    lib = _build.bind("gemm_fine", SIGNATURES)
     info = (ctypes.c_int * 6)()
     err = lib.hbsm_fine_spgemm_config(
-        b, _PRECISIONS[precision], _bucket(max(b_row_max, 1)),
+        b, _build.PRECISION_CODES[precision], _bucket(max(b_row_max, 1)),
         ctas_per_sm or CTAS_PER_SM.get((b, precision), 1), ctypes.cast(info, ctypes.c_void_p),
     )
-    if err != 0:
-        raise RuntimeError(f"fine_spgemm config: {lib.hbsm_cuda_error_string(err).decode()}")
+    _build.check(lib, err, "fine_spgemm config")
     keys = ("kc", "smem_bytes", "blocks_per_sm", "registers", "local_bytes", "threads")
     return dict(zip(keys, info))
 

@@ -41,19 +41,18 @@ import numpy as np
 import torch
 
 from hierarchical_block_sparse_lib_tpu_torch.core.block_matrix import SENTINEL
+from hierarchical_block_sparse_lib_tpu_torch.kernels import _build
 from hierarchical_block_sparse_lib_tpu_torch.kernels.pallas_gemm_fine import (
-    _PRECISIONS,
     _bucket,
-    _check_index,
     build_tables,
     check_blocks,
     pair_slots,
     tier_bmm,
 )
 from hierarchical_block_sparse_lib_tpu_torch.kernels.pallas_gemm_rows import (
-    _VMEM_BUDGET,
     CONFIG_KEYS,
-    _tier,
+    REFERENCE_VMEM_BUDGET,
+    ring_tier,
 )
 from hierarchical_block_sparse_lib_tpu_torch.utils.profiling import span
 
@@ -74,7 +73,7 @@ def _reference_tier(b: int, itemsize: int, a_grp_max: int, slab_max: int,
     am, sm, cm = _bucket(a_grp_max), _bucket(slab_max), _bucket(c_grp_max)
     for acc_p, panel_p in ((2, 2), (1, 2), (1, 1)):
         vmem = panel_p * (am + sm) * b * b * itemsize + acc_p * cm * b * b * 4
-        if vmem <= _VMEM_BUDGET:
+        if vmem <= REFERENCE_VMEM_BUDGET:
             return acc_p, panel_p
     return None
 
@@ -251,7 +250,7 @@ def groups_spgemm_reference(
     del c_grp_max
     b = a_data.shape[-1]
     dev = a_data.device
-    precision = _tier(precision, a_data.dtype)
+    precision = ring_tier(precision, a_data.dtype)
     if tables is None:
         tables = group_tables(a_ids, b_ids, out_ids, nbr, nbrB, nbc, g_rows)
     out = torch.zeros((out_cap + 1, b, b), dtype=torch.float32, device=dev)
@@ -267,7 +266,6 @@ def groups_spgemm_reference(
     return out[:out_cap]
 
 
-_LIB = None
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # The C entries of gemm_groups.cu and their arguments (pointers and the
 # stream as c_void_p, ints as c_int).
@@ -277,35 +275,17 @@ SIGNATURES = {
 }
 
 
-def _kernel_lib():
-    global _LIB
-    if _LIB is None:
-        from hierarchical_block_sparse_lib_tpu_torch.kernels import _build
-
-        lib = _build.load("gemm_groups")
-        for name, args in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.restype, fn.argtypes = _I, args
-        lib.hbsm_cuda_error_string.restype = ctypes.c_char_p
-        lib.hbsm_cuda_error_string.argtypes = [_I]
-        _LIB = lib
-    return _LIB
-
-
 def launch_config(dtype, precision: str) -> dict:
     """What a launch for this data type and tier gets, read from the
     library and the card: dynamic shared bytes, resident blocks per SM,
     registers and local (spill) bytes per thread, threads per block."""
-    lib = _kernel_lib()
+    lib = _build.bind("gemm_groups", SIGNATURES)
     info = (ctypes.c_int * len(CONFIG_KEYS))()
     err = lib.hbsm_groups_spgemm_config(
-        int(dtype == torch.bfloat16), _PRECISIONS[_tier(precision, dtype)],
+        int(dtype == torch.bfloat16), _build.PRECISION_CODES[ring_tier(precision, dtype)],
         ctypes.cast(info, ctypes.c_void_p),
     )
-    if err != 0:
-        raise RuntimeError(
-            f"groups_spgemm config: {lib.hbsm_cuda_error_string(err).decode()}"
-        )
+    _build.check(lib, err, "groups_spgemm config")
     return dict(zip(CONFIG_KEYS, info))
 
 
@@ -344,7 +324,7 @@ def groups_spgemm(
         )
     if g_rows < 1:
         raise ValueError(f"g_rows must be >= 1, got {g_rows}")
-    precision = _tier(precision, a_data.dtype)
+    precision = ring_tier(precision, a_data.dtype)
     a_data, b_data = a_data.contiguous(), b_data.contiguous()
     cap_a, cap_b = a_data.shape[0], b_data.shape[0]
     check_blocks("a_data", a_data, (cap_a, b, b), a_data.dtype, device)
@@ -360,26 +340,21 @@ def groups_spgemm(
         ("b_col", tables.b_col, cap_b), ("grp_a_start", tables.grp_a_start, ngrp + 1),
         ("slab_lo", tables.slab_lo, ngrp),
     ):
-        _check_index(name, t, n, device)
+        _build.check_index(name, t, n, device)
     out = torch.empty((out_cap, b, b), dtype=torch.float32, device=device)
     if out_cap == 0:
         return out
-    lib = _kernel_lib()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.hbsm_groups_spgemm(
-            out_ids.data_ptr(), tables.a_row_start.data_ptr(), tables.a_col.data_ptr(),
-            tables.b_row_start.data_ptr(), tables.b_col.data_ptr(),
-            tables.grp_a_start.data_ptr(), tables.slab_lo.data_ptr(),
-            a_data.data_ptr(), b_data.data_ptr(), out.data_ptr(),
-            out_cap, nbr, nbc, g_rows, _bucket(a_grp_max), _bucket(slab_max),
-            cap_b, b, int(a_data.dtype == torch.bfloat16),
-            _PRECISIONS[precision], stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"groups_spgemm launch failed: {lib.hbsm_cuda_error_string(err).decode()}"
-        )
+    _build.launch(
+        _build.bind("gemm_groups", SIGNATURES), "hbsm_groups_spgemm",
+        "groups_spgemm launch failed", device,
+        out_ids.data_ptr(), tables.a_row_start.data_ptr(), tables.a_col.data_ptr(),
+        tables.b_row_start.data_ptr(), tables.b_col.data_ptr(),
+        tables.grp_a_start.data_ptr(), tables.slab_lo.data_ptr(),
+        a_data.data_ptr(), b_data.data_ptr(), out.data_ptr(),
+        out_cap, nbr, nbc, g_rows, _bucket(a_grp_max), _bucket(slab_max),
+        cap_b, b, int(a_data.dtype == torch.bfloat16),
+        _build.PRECISION_CODES[precision],
+    )
     groups_spgemm.launches += 1
     return out
 

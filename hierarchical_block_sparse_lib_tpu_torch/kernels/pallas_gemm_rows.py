@@ -35,10 +35,9 @@ import numpy as np
 import torch
 
 from hierarchical_block_sparse_lib_tpu_torch.core.block_matrix import SENTINEL
+from hierarchical_block_sparse_lib_tpu_torch.kernels import _build
 from hierarchical_block_sparse_lib_tpu_torch.kernels.pallas_gemm_fine import (
-    _PRECISIONS,
     _bucket,
-    _check_index,
     build_tables,
     check_blocks,
     expand_pairs,
@@ -51,7 +50,7 @@ _DTYPES = (torch.float32, torch.bfloat16)
 
 # The TPU kernels' VMEM budget, which the reference's row-panel and
 # row-group rules use.
-_VMEM_BUDGET = int(13.5 * 1024 * 1024)
+REFERENCE_VMEM_BUDGET = int(13.5 * 1024 * 1024)
 
 
 def supported(b: int, dtype) -> bool:
@@ -68,7 +67,7 @@ def _reference_tier(b: int, itemsize: int, b_row_max: int, c_row_max: int):
     for acc_p, panel_p in ((2, 4), (2, 3), (2, 2), (1, 2), (1, 1)):
         vmem = (panel_p * bb * b * b * itemsize + acc_p * cb * b * b * 4
                 + panel_p * b * b * itemsize)
-        if vmem <= _VMEM_BUDGET:
+        if vmem <= REFERENCE_VMEM_BUDGET:
             return acc_p, panel_p
     return None
 
@@ -87,8 +86,10 @@ def reference_rows_rule(b: int, dtype, b_row_max: int, c_row_max: int, nbc: int)
     )
 
 
-def _tier(precision: str, dtype) -> str:
-    if precision not in _PRECISIONS:
+def ring_tier(precision: str, dtype) -> str:
+    """The tier the ring engine (the rows and groups kernels) runs
+    `precision` at for `dtype` data; raise on an unknown precision."""
+    if precision not in _build.PRECISION_CODES:
         raise ValueError(f"unknown precision {precision!r}")
     # bf16 storage: one pass is already operand-exact, as in the reference.
     return "highest" if dtype == torch.bfloat16 else precision
@@ -122,7 +123,7 @@ def rows_spgemm_reference(
     del c_row_max
     b = a_data.shape[-1]
     dev = a_data.device
-    precision = _tier(precision, a_data.dtype)
+    precision = ring_tier(precision, a_data.dtype)
     _, a_col, b_row_start, b_col, _, _ = build_tables(
         a_ids, b_ids, out_ids, nbr, nbrB, nbc
     )
@@ -153,7 +154,6 @@ def rows_spgemm_reference(
     return out[:out_cap]
 
 
-_LIB = None
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # The C entries of gemm_rows.cu and their arguments (pointers and the
 # stream as c_void_p, ints as c_int, tau2_val as c_float).
@@ -164,33 +164,17 @@ SIGNATURES = {
 CONFIG_KEYS = ("smem_bytes", "blocks_per_sm", "registers", "local_bytes", "threads")
 
 
-def _kernel_lib():
-    global _LIB
-    if _LIB is None:
-        from hierarchical_block_sparse_lib_tpu_torch.kernels import _build
-
-        lib = _build.load("gemm_rows")
-        for name, args in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.restype, fn.argtypes = _I, args
-        lib.hbsm_cuda_error_string.restype = ctypes.c_char_p
-        lib.hbsm_cuda_error_string.argtypes = [_I]
-        _LIB = lib
-    return _LIB
-
-
 def launch_config(dtype, precision: str) -> dict:
     """What a launch for this data type and tier gets, read from the
     library and the card: dynamic shared bytes, resident blocks per SM,
     registers and local (spill) bytes per thread, threads per block."""
-    lib = _kernel_lib()
+    lib = _build.bind("gemm_rows", SIGNATURES)
     info = (ctypes.c_int * len(CONFIG_KEYS))()
     err = lib.hbsm_rows_spgemm_config(
-        int(dtype == torch.bfloat16), _PRECISIONS[_tier(precision, dtype)],
+        int(dtype == torch.bfloat16), _build.PRECISION_CODES[ring_tier(precision, dtype)],
         ctypes.cast(info, ctypes.c_void_p),
     )
-    if err != 0:
-        raise RuntimeError(f"rows_spgemm config: {lib.hbsm_cuda_error_string(err).decode()}")
+    _build.check(lib, err, "rows_spgemm config")
     return dict(zip(CONFIG_KEYS, info))
 
 
@@ -235,7 +219,7 @@ def rows_spgemm(
         )
     if (a_norms2 is None) != (b_norms2 is None):
         raise ValueError("the SpAMM skip needs both a_norms2 and b_norms2")
-    precision = _tier(precision, a_data.dtype)
+    precision = ring_tier(precision, a_data.dtype)
     a_data, b_data = a_data.contiguous(), b_data.contiguous()
     cap_a, cap_b = a_data.shape[0], b_data.shape[0]
     check_blocks("a_data", a_data, (cap_a, b, b), a_data.dtype, device)
@@ -249,7 +233,7 @@ def rows_spgemm(
         ("a_col", a_col, cap_a), ("b_row_start", b_row_start, nbrB + 1),
         ("b_col", b_col, cap_b),
     ):
-        _check_index(name, t, n, device)
+        _build.check_index(name, t, n, device)
     ptrs = {}
     if acc_data is not None:
         acc_data = acc_data.to(torch.float32).contiguous()
@@ -266,24 +250,19 @@ def rows_spgemm(
         if t2_dev is not None and t2_dev.device != device:
             raise ValueError(f"tau2 on {t2_dev.device}, operands on {device}")
     out = torch.empty((out_cap, b, b), dtype=torch.float32, device=device)
-    lib = _kernel_lib()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.hbsm_rows_spgemm(
-            out_ids.data_ptr(), a_row_start.data_ptr(), a_col.data_ptr(),
-            b_row_start.data_ptr(), b_col.data_ptr(), a_data.data_ptr(),
-            b_data.data_ptr(), ptrs.get("acc"),
-            a_norms2.data_ptr() if a_norms2 is not None else None,
-            b_norms2.data_ptr() if b_norms2 is not None else None,
-            t2_dev.data_ptr() if t2_dev is not None else None, t2,
-            out.data_ptr(), out_cap, nbr, nbc, _bucket(max(b_row_max, 1)),
-            int(triu), b, int(a_data.dtype == torch.bfloat16),
-            _PRECISIONS[precision], stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"rows_spgemm launch failed: {lib.hbsm_cuda_error_string(err).decode()}"
-        )
+    _build.launch(
+        _build.bind("gemm_rows", SIGNATURES), "hbsm_rows_spgemm", "rows_spgemm launch failed",
+        device,
+        out_ids.data_ptr(), a_row_start.data_ptr(), a_col.data_ptr(),
+        b_row_start.data_ptr(), b_col.data_ptr(), a_data.data_ptr(),
+        b_data.data_ptr(), ptrs.get("acc"),
+        a_norms2.data_ptr() if a_norms2 is not None else None,
+        b_norms2.data_ptr() if b_norms2 is not None else None,
+        t2_dev.data_ptr() if t2_dev is not None else None, t2,
+        out.data_ptr(), out_cap, nbr, nbc, _bucket(max(b_row_max, 1)),
+        int(triu), b, int(a_data.dtype == torch.bfloat16),
+        _build.PRECISION_CODES[precision],
+    )
     rows_spgemm.launches += 1
     return out
 

@@ -30,8 +30,8 @@ import ctypes
 
 import torch
 
+from hierarchical_block_sparse_lib_tpu_torch.kernels import _build
 from hierarchical_block_sparse_lib_tpu_torch.kernels.pallas_gemm_fine import (
-    _PRECISIONS,
     check_blocks,
     tier_bmm,
 )
@@ -50,7 +50,7 @@ def supported(b: int, dtype) -> bool:
 
 
 def _tier(precision: str, dtype) -> str:
-    if precision not in _PRECISIONS:
+    if precision not in _build.PRECISION_CODES:
         raise ValueError(f"unknown precision {precision!r}")
     if dtype == torch.bfloat16 or precision == "high":
         return "highest"
@@ -81,7 +81,6 @@ def gather_gemm_accumulate_stream_reference(
     return out[:out_cap]
 
 
-_LIB = None
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # The C entries of gemm_stream.cu and their arguments (pointers and the
 # stream as c_void_p, ints as c_int).
@@ -91,34 +90,18 @@ SIGNATURES = {
 }
 
 
-def _kernel_lib():
-    global _LIB
-    if _LIB is None:
-        from hierarchical_block_sparse_lib_tpu_torch.kernels import _build
-
-        lib = _build.load("gemm_stream")
-        for name, args in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.restype, fn.argtypes = _I, args
-        lib.hbsm_cuda_error_string.restype = ctypes.c_char_p
-        lib.hbsm_cuda_error_string.argtypes = [_I]
-        _LIB = lib
-    return _LIB
-
-
 def launch_config(dtype, precision: str) -> dict:
     """What a launch for this data type and tier gets (the keys of
     `pallas_gemm_rows.CONFIG_KEYS`), read from the library and the card."""
     from hierarchical_block_sparse_lib_tpu_torch.kernels.pallas_gemm_rows import CONFIG_KEYS
 
-    lib = _kernel_lib()
+    lib = _build.bind("gemm_stream", SIGNATURES)
     info = (ctypes.c_int * len(CONFIG_KEYS))()
     err = lib.hbsm_stream_gemm_config(
-        int(dtype == torch.bfloat16), _PRECISIONS[_tier(precision, dtype)],
+        int(dtype == torch.bfloat16), _build.PRECISION_CODES[_tier(precision, dtype)],
         ctypes.cast(info, ctypes.c_void_p),
     )
-    if err != 0:
-        raise RuntimeError(f"stream config: {lib.hbsm_cuda_error_string(err).decode()}")
+    _build.check(lib, err, "stream config")
     return dict(zip(CONFIG_KEYS, info))
 
 
@@ -176,21 +159,15 @@ def gather_gemm_accumulate_stream(
         torch.arange(out_cap + 1, dtype=torch.int32, device=device),
         out_int32=True,
     )
-    lib = _kernel_lib()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.hbsm_stream_gemm(
-            slot_start.data_ptr(), a_idx.data_ptr(), b_idx.data_ptr(),
-            a_data.data_ptr(), b_data.data_ptr(),
-            cin.data_ptr() if cin is not None else None, out.data_ptr(),
-            out_cap, cap_a, cap_b, b, int(a_data.dtype == torch.bfloat16),
-            _PRECISIONS[precision], stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            "gather_gemm_accumulate_stream launch failed: "
-            f"{lib.hbsm_cuda_error_string(err).decode()}"
-        )
+    _build.launch(
+        _build.bind("gemm_stream", SIGNATURES), "hbsm_stream_gemm",
+        "gather_gemm_accumulate_stream launch failed", device,
+        slot_start.data_ptr(), a_idx.data_ptr(), b_idx.data_ptr(),
+        a_data.data_ptr(), b_data.data_ptr(),
+        cin.data_ptr() if cin is not None else None, out.data_ptr(),
+        out_cap, cap_a, cap_b, b, int(a_data.dtype == torch.bfloat16),
+        _build.PRECISION_CODES[precision],
+    )
     gather_gemm_accumulate_stream.launches += 1
     return out
 

@@ -19,6 +19,8 @@ import ctypes
 import numpy as np
 import torch
 
+from hierarchical_block_sparse_lib_tpu_torch.kernels import _build
+
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -50,24 +52,9 @@ def norms_and_keep_reference(data: torch.Tensor, tau):
     return n2, n2 > (t2_dev[0] if t2_dev is not None else t2)
 
 
-_LIB = None
-
-
-def _kernel_lib():
-    global _LIB
-    if _LIB is None:
-        from hierarchical_block_sparse_lib_tpu_torch.kernels import _build
-
-        lib = _build.load("norms")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.hbsm_block_norms.restype = i
-        lib.hbsm_block_norms.argtypes = [
-            p, i, ctypes.c_longlong, i, p, p, p, ctypes.c_float, p,
-        ]
-        lib.hbsm_cuda_error_string.restype = ctypes.c_char_p
-        lib.hbsm_cuda_error_string.argtypes = [i]
-        _LIB = lib
-    return _LIB
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# The C entry of norms.cu and its arguments.
+SIGNATURES = {"hbsm_block_norms": [_P, _I, ctypes.c_longlong, _I, _P, _P, _P, ctypes.c_float, _P]}
 
 
 def _launch(data: torch.Tensor, with_keep: bool, tau=None):
@@ -87,19 +74,14 @@ def _launch(data: torch.Tensor, with_keep: bool, tau=None):
     t2_dev, t2 = _tau2(tau) if with_keep else (None, 0.0)
     if t2_dev is not None and t2_dev.device != data.device:
         raise ValueError(f"tau on {t2_dev.device}, data on {data.device}")
-    lib = _kernel_lib()
-    with torch.cuda.device(data.device):
-        stream = torch.cuda.current_stream(data.device).cuda_stream
-        err = lib.hbsm_block_norms(
-            data.data_ptr(), cap, data.shape[1] * data.shape[2],
-            int(data.dtype == torch.bfloat16), n2.data_ptr(),
-            keep.data_ptr() if keep is not None else None,
-            t2_dev.data_ptr() if t2_dev is not None else None, t2, stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"norm kernel launch failed: {lib.hbsm_cuda_error_string(err).decode()}"
-        )
+    _build.launch(
+        _build.bind("norms", SIGNATURES), "hbsm_block_norms", "norm kernel launch failed",
+        data.device,
+        data.data_ptr(), cap, data.shape[1] * data.shape[2],
+        int(data.dtype == torch.bfloat16), n2.data_ptr(),
+        keep.data_ptr() if keep is not None else None,
+        t2_dev.data_ptr() if t2_dev is not None else None, t2,
+    )
     return n2, keep
 
 

@@ -25,9 +25,16 @@ import math
 import torch
 
 from hierarchical_block_sparse_lib_tpu_torch.core.block_matrix import SENTINEL, gather_slots
+from hierarchical_block_sparse_lib_tpu_torch.kernels import _build
 
-# The kernel's data types, by its code.
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
+_P, _I, _D, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_double, ctypes.c_longlong
+# The C entries of union_add.cu and their arguments; the scratch size
+# returns a long long.
+SIGNATURES = {
+    "hbsm_union_add_scratch": [_I, _I, _I],
+    "hbsm_union_add": [_P, _P, _I, _P, _P, _I, _L, _I, _P, _D, _P, _D, _I, _P, _P, _P, _P, _P, _P],
+}
+_RESTYPES = {"hbsm_union_add_scratch": _L}
 
 
 def union_slots(a_ids: torch.Tensor, b_ids: torch.Tensor, cap: int):
@@ -73,47 +80,11 @@ def union_add_reference(a_ids, a_data, b_ids, b_data, alpha=1.0, beta=1.0, cap=N
     return ids[:cap], data, torch.clamp(size, max=cap), size > cap
 
 
-_LIB = None
-
-
-def _kernel_lib():
-    global _LIB
-    if _LIB is None:
-        from hierarchical_block_sparse_lib_tpu_torch.kernels import _build
-
-        lib = _build.load("union_add")
-        p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-        lib.hbsm_union_add_scratch.restype = ctypes.c_longlong
-        lib.hbsm_union_add_scratch.argtypes = [i, i, i]
-        lib.hbsm_union_add.restype = i
-        lib.hbsm_union_add.argtypes = [
-            p, p, i, p, p, i, ctypes.c_longlong, i, p, d, p, d, i, p, p, p, p, p, p,
-        ]
-        lib.hbsm_cuda_error_string.restype = ctypes.c_char_p
-        lib.hbsm_cuda_error_string.argtypes = [i]
-        _LIB = lib
-    return _LIB
-
-
-def _scalar_arg(x, dtype, device):
-    """A factor as the kernel takes it: (device scalar of `dtype` or None,
-    host value).  A tensor on the card stays there (no host sync); a
-    number or a CPU tensor is read on the host, a tensor after the cast to
-    `dtype` that torch's scale makes."""
-    if isinstance(x, torch.Tensor):
-        if x.device.type == "cpu":
-            return None, float(x.to(dtype))
-        if x.device != device:
-            raise ValueError(f"factor on {x.device}, data on {device}")
-        return x.to(dtype).reshape(1).contiguous(), 0.0
-    return None, float(x)
-
-
 def _launch(a_ids, a_data, b_ids, b_data, alpha, beta, cap):
     dev = a_data.device
     if dev.type != "cuda":
         raise ValueError(f"union-add kernel runs on CUDA tensors, got {dev}")
-    if a_data.dtype != b_data.dtype or a_data.dtype not in _DTYPES:
+    if a_data.dtype != b_data.dtype or a_data.dtype not in _build.DTYPE_CODES:
         raise ValueError(
             f"union-add kernel needs f32, bf16 or f64 data of one dtype, got "
             f"{a_data.dtype} and {b_data.dtype}"
@@ -129,30 +100,25 @@ def _launch(a_ids, a_data, b_ids, b_data, alpha, beta, cap):
         raise ValueError("ids and blocks differ in capacity")
     a_ids, b_ids = a_ids.contiguous(), b_ids.contiguous()
     a_data, b_data = a_data.contiguous(), b_data.contiguous()
-    alpha_dev, alpha_val = _scalar_arg(alpha, a_data.dtype, dev)
-    beta_dev, beta_val = _scalar_arg(beta, b_data.dtype, dev)
+    alpha_dev, alpha_val = _build.scalar_arg(alpha, a_data.dtype, dev)
+    beta_dev, beta_val = _build.scalar_arg(beta, b_data.dtype, dev)
     cap_a, cap_b = a_ids.shape[0], b_ids.shape[0]
-    lib = _kernel_lib()
+    lib = _build.bind("union_add", SIGNATURES, _RESTYPES)
     scratch = torch.empty((lib.hbsm_union_add_scratch(cap_a, cap_b, cap),),
                           dtype=torch.int32, device=dev)
     ids = torch.empty((cap,), dtype=torch.int32, device=dev)
     data = torch.empty((cap,) + tuple(a_data.shape[1:]), dtype=a_data.dtype, device=dev)
     nnz = torch.empty((), dtype=torch.int32, device=dev)
     overflow = torch.empty((), dtype=torch.bool, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.hbsm_union_add(
-            a_ids.data_ptr(), a_data.data_ptr(), cap_a, b_ids.data_ptr(), b_data.data_ptr(),
-            cap_b, math.prod(a_data.shape[1:]), _DTYPES[a_data.dtype],
-            alpha_dev.data_ptr() if alpha_dev is not None else None, alpha_val,
-            beta_dev.data_ptr() if beta_dev is not None else None, beta_val,
-            cap, scratch.data_ptr(), ids.data_ptr(), data.data_ptr(), nnz.data_ptr(),
-            overflow.data_ptr(), stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"union-add kernel launch failed: {lib.hbsm_cuda_error_string(err).decode()}"
-        )
+    _build.launch(
+        lib, "hbsm_union_add", "union-add kernel launch failed", dev,
+        a_ids.data_ptr(), a_data.data_ptr(), cap_a, b_ids.data_ptr(), b_data.data_ptr(),
+        cap_b, math.prod(a_data.shape[1:]), _build.DTYPE_CODES[a_data.dtype],
+        alpha_dev.data_ptr() if alpha_dev is not None else None, alpha_val,
+        beta_dev.data_ptr() if beta_dev is not None else None, beta_val,
+        cap, scratch.data_ptr(), ids.data_ptr(), data.data_ptr(), nnz.data_ptr(),
+        overflow.data_ptr(),
+    )
     return ids, data, nnz, overflow
 
 

@@ -26,8 +26,9 @@ import torch
 from hierarchical_block_sparse_lib_tpu_torch.core.block_matrix import (
     SENTINEL,
     BlockMatrix,
+    is_static_one,
+    scalar_factor,
 )
-from hierarchical_block_sparse_lib_tpu_torch.ops import basic
 from hierarchical_block_sparse_lib_tpu_torch.ops.spgemm import matmul_precision
 
 STRIP = 128  # strip height
@@ -302,8 +303,8 @@ def band_mm(
     # 128s - wa + j: A's panels are already the left operand.
     with matmul_precision(precision, a.device):
         out = torch.bmm(a.panels.to(acc), win)
-    if not (isinstance(alpha, (int, float)) and float(alpha) == 1.0):
-        out = out * basic._scalar(alpha, out)
+    if not is_static_one(alpha):
+        out = out * scalar_factor(alpha, out)
     out = out.to(a.dtype)
     if wc_true < a.w + b.w:
         # out_w below the natural fill-in: discard the entries past the
@@ -325,12 +326,12 @@ def band_add(a: BandMatrix, b: BandMatrix, alpha=1.0, beta=1.0) -> BandMatrix:
     pb = torch.nn.functional.pad(b.panels, (d, d))
     acc = torch.promote_types(a.dtype, torch.float32)
     x, y = a.panels.to(acc), pb.to(acc)
-    out = (x * basic._scalar(alpha, x) + y * basic._scalar(beta, y)).to(a.dtype)
+    out = (x * scalar_factor(alpha, x) + y * scalar_factor(beta, y)).to(a.dtype)
     return BandMatrix(panels=out, n=a.n, w=max(a.w, b.w))
 
 
 def band_scale(a: BandMatrix, alpha) -> BandMatrix:
-    return BandMatrix(panels=a.panels * basic._scalar(alpha, a.panels), n=a.n, w=a.w)
+    return BandMatrix(panels=a.panels * scalar_factor(alpha, a.panels), n=a.n, w=a.w)
 
 
 def band_frob_squared(a: BandMatrix) -> torch.Tensor:

@@ -13,18 +13,14 @@ from hierarchical_block_sparse_lib_tpu_torch.core.block_matrix import (
     SENTINEL,
     BlockMatrix,
     compact_sorted,
-    first_of_run,
     gather_slots,
+    has_duplicate_ids,
+    ids_mismatch,
+    run_slots,
+    scalar_factor,
 )
 from hierarchical_block_sparse_lib_tpu_torch.kernels.union_add import union_add
 from hierarchical_block_sparse_lib_tpu_torch.utils.profiling import span
-
-
-def _scalar(x, like: torch.Tensor):
-    """`x` (a number or a 0-dim tensor) as a factor for `like`: a tensor
-    is cast to `like`'s dtype on its own device (a 0-dim tensor scales a
-    tensor on any device without a host sync); a number stays a number."""
-    return x.to(like.dtype) if isinstance(x, torch.Tensor) else x
 
 
 def add_with_info(
@@ -70,7 +66,7 @@ def add(a: BlockMatrix, b: BlockMatrix, alpha=1.0, beta=1.0, cap: int | None = N
 def scale(a: BlockMatrix, alpha) -> BlockMatrix:
     """A <- alpha * A.  Structure is preserved (even for alpha == 0)."""
     with span("hbsm.scale"):
-        return a.with_data(a.data * _scalar(alpha, a.data))
+        return a.with_data(a.data * scalar_factor(alpha, a.data))
 
 
 def union_merge(c_id: torch.Tensor, acc_ids: torch.Tensor, out_cap: int):
@@ -85,19 +81,13 @@ def union_merge(c_id: torch.Tensor, acc_ids: torch.Tensor, out_cap: int):
     with span("hbsm.union"):
         both = torch.cat([c_id, acc_ids])
         order = torch.argsort(both, stable=True)
-        uni = both[order]
-        validu = uni != SENTINEL
-        firstu = first_of_run(uni) & validu
-        slotu = torch.where(validu, torch.cumsum(firstu, 0) - 1, out_cap)
-        out_ids = torch.full((out_cap + 1,), SENTINEL, dtype=torch.int32, device=c_id.device)
-        out_ids[slotu.clamp(max=out_cap)] = uni.to(torch.int32)
-        n_unique = firstu.sum().to(torch.int32)
+        slotu, out_ids, n_unique = run_slots(both[order], out_cap)
         # Original element order[i] sits at sorted position i.
         slot_orig = torch.empty_like(slotu)
         slot_orig[order] = slotu
         slot_orig = slot_orig.to(torch.int32)
         n = c_id.shape[0]
-        return out_ids[:out_cap], slot_orig[:n], slot_orig[n:], n_unique
+        return out_ids, slot_orig[:n], slot_orig[n:], n_unique
 
 
 @dataclass(frozen=True)
@@ -140,14 +130,11 @@ def add_planned(a: BlockMatrix, b: BlockMatrix, plan: AddPlan, alpha=1.0, beta=1
             raise ValueError(
                 f"plan built for capA+capB={plan.slot_in.shape[0]}, got {a.cap}+{b.cap}"
             )
-        mismatch = torch.zeros((), dtype=torch.bool, device=a.device)
-        for m, want in ((a, plan.a_ids), (b, plan.b_ids)):
-            if m.ids.shape != want.shape:  # a capacity change counts as drift
-                mismatch = torch.ones_like(mismatch)
-            else:
-                mismatch = mismatch | torch.any(m.ids != want)
-            # One block per slot holds only for sorted unique ids.
-            mismatch = mismatch | torch.any((m.ids[1:] == m.ids[:-1]) & m.valid_mask()[1:])
+        # One block per slot holds only for sorted unique ids.
+        mismatch = (
+            ids_mismatch(((a.ids, plan.a_ids), (b.ids, plan.b_ids)))
+            | has_duplicate_ids(a.ids) | has_duplicate_ids(b.ids)
+        )
         out_data = (
             gather_slots(plan.slot_in[: a.cap], a.data, cap, alpha)
             + gather_slots(plan.slot_in[a.cap:], b.data, cap, beta)

@@ -19,7 +19,8 @@ import torch
 from hierarchical_block_sparse_lib_tpu_torch.core.block_matrix import (
     SENTINEL,
     BlockMatrix,
-    first_of_run,
+    ids_mismatch,
+    run_slots,
 )
 from hierarchical_block_sparse_lib_tpu_torch.kernels.pallas_gemm_fine import (
     fine_spgemm,
@@ -181,13 +182,7 @@ def _structure(sa: BlockMatrix, sb: BlockMatrix, pair_cap, out_cap, row_caps):
     """Symbolic phase -> (out_ids, n_unique, total, raw_total, row_overflow)."""
     with span("hbsm.symbolic"):
         _, _, c_id, total, raw_total = spgemm_symbolic(sa, sb, pair_cap)
-        valid_p = c_id != SENTINEL
-        first = first_of_run(c_id)
-        seg = torch.where(valid_p, torch.cumsum(first, 0) - 1, out_cap).clamp_(max=out_cap)
-        n_unique = (first & valid_p).sum().to(torch.int32)
-        out_ids = torch.full((out_cap + 1,), SENTINEL, dtype=torch.int32, device=c_id.device)
-        out_ids[seg] = c_id
-        out_ids = out_ids[:out_cap]
+        _, out_ids, n_unique = run_slots(c_id, out_cap)
         return out_ids, n_unique, total, raw_total, _row_overflow(
             sb, out_ids, sa.nb_rows, row_caps
         )
@@ -229,10 +224,9 @@ def fine_matmul(
     with span("hbsm.fine_matmul"):
         if a.n_cols != b.n_rows or a.block_size != b.block_size:
             raise ValueError("inner dims/block mismatch")
-        dev = a.device
-        plan_mismatch = torch.zeros((), dtype=torch.bool, device=dev)
         tables = None
         if plan is None:
+            plan_mismatch = torch.zeros((), dtype=torch.bool, device=a.device)
             out_ids, n_unique, total, raw_total, row_overflow = _structure(
                 _shim(a), _shim(b), pair_cap, out_cap, row_caps
             )
@@ -243,11 +237,7 @@ def fine_matmul(
             n_unique, total, raw_total = plan.n_unique, plan.total, plan.raw_total
             tables = plan.tables
             row_overflow = plan.row_overflow
-            for got, want in ((a.ids, plan.a_ids), (b.ids, plan.b_ids)):
-                if got.shape != want.shape:
-                    plan_mismatch = torch.ones_like(plan_mismatch)
-                else:
-                    plan_mismatch = plan_mismatch | torch.any(got != want)
+            plan_mismatch = ids_mismatch(((a.ids, plan.a_ids), (b.ids, plan.b_ids)))
         with span("hbsm.product"):
             out_data = fine_spgemm(
                 a.ids, a.data, b.ids, b.data, out_ids,

@@ -37,11 +37,11 @@ import torch
 from hierarchical_block_sparse_lib_tpu_torch.core.block_matrix import (
     SENTINEL,
     BlockMatrix,
+    ids_mismatch,
+    scalar_factor,
 )
-from hierarchical_block_sparse_lib_tpu_torch.ops import basic
 from hierarchical_block_sparse_lib_tpu_torch.ops.spgemm import (
     MultiplyInfo,
-    ids_mismatch,
     matmul_precision,
 )
 
@@ -284,7 +284,7 @@ def kpack_spgemm(
             pa = a_cols[sa.long()].permute(0, 2, 1, 3).reshape(tg, tile, lk * bf)
             pb = b_rows[sb.long()].reshape(tg, lk * bf, tile)
             out[slot.long()] = torch.bmm(pa.to(acc), pb.to(acc))
-    out = (out * basic._scalar(alpha, out)).to(a.dtype)
+    out = (out * scalar_factor(alpha, out)).to(a.dtype)
 
     c = BlockMatrix(
         ids=plan.c_ids,

@@ -31,11 +31,11 @@ import torch
 from hierarchical_block_sparse_lib_tpu_torch.core.block_matrix import (
     SENTINEL,
     BlockMatrix,
+    ids_mismatch,
+    scalar_factor,
 )
-from hierarchical_block_sparse_lib_tpu_torch.ops import basic
 from hierarchical_block_sparse_lib_tpu_torch.ops.spgemm import (
     MultiplyInfo,
-    ids_mismatch,
     matmul_precision,
 )
 
@@ -223,7 +223,7 @@ def leafpack_spgemm(
     pb = bz[plan.b_gidx.long()].permute(0, 1, 3, 2, 4).reshape(S, La * bf, Lc * bf)
     with matmul_precision(precision, a.device):
         pc = torch.bmm(pa, pb)  # [S, (r, i), (u, j)]
-    pc = pc * basic._scalar(alpha, pc)
+    pc = pc * scalar_factor(alpha, pc)
     pc = pc.reshape(S, f, bf, Lc, bf).permute(0, 1, 3, 2, 4).reshape(S * f * Lc, bf, bf)
     out = torch.zeros((plan.out_cap + 1, bf, bf), dtype=acc, device=a.device)
     out[plan.c_slot.reshape(-1).long()] = pc  # absent leaves go to slot out_cap

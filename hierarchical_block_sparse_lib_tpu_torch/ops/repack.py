@@ -15,7 +15,7 @@ import torch
 from hierarchical_block_sparse_lib_tpu_torch.core.block_matrix import (
     SENTINEL,
     BlockMatrix,
-    first_of_run,
+    run_slots,
 )
 
 
@@ -82,10 +82,9 @@ def coarsen(
     ).to(torch.int32)
     order = torch.argsort(new_id, stable=True)
     nid_s = new_id[order]
-    valid = nid_s != SENTINEL
-    first = first_of_run(nid_s)
+    slot, ids, nnz = run_slots(nid_s, cap2)
     # Padding and slots past the capacity go to the trash slot cap2.
-    slot = torch.where(valid, torch.cumsum(first, 0) - 1, cap2).clamp_(max=cap2)
+    slot.clamp_(max=cap2)
     rf = (brow % f)[order].long()
     cf = (bcol % f)[order].long()
     # Each small block lands at its own (rf, cf) position of its coarse
@@ -93,14 +92,12 @@ def coarsen(
     grid = torch.zeros((cap2 + 1, f, f, b, b), dtype=a.dtype, device=dev)
     grid[slot, rf, cf] = a.data[order]
     data = grid[:cap2].permute(0, 1, 3, 2, 4).reshape(cap2, f * b, f * b)
-    ids = torch.full((cap2 + 1,), SENTINEL, dtype=torch.int32, device=dev)
-    ids[slot] = nid_s
     m = BlockMatrix(
-        ids=ids[:cap2], data=data, nnz=(first & valid).sum().to(torch.int32),
+        ids=ids, data=data, nnz=nnz,
         n_rows=a.n_rows, n_cols=a.n_cols, block_size=b * f,
     )
     if not track_leaves:
         return m
     occ = torch.zeros((cap2 + 1, f, f), dtype=torch.bool, device=dev)
-    occ[slot, rf, cf] = valid
+    occ[slot, rf, cf] = nid_s != SENTINEL
     return m, occ[:cap2]

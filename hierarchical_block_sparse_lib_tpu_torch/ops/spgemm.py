@@ -36,7 +36,13 @@ import torch
 from hierarchical_block_sparse_lib_tpu_torch.core.block_matrix import (
     SENTINEL,
     BlockMatrix,
-    first_of_run,
+    accumulate_slots,
+    has_duplicate_ids,
+    ids_mismatch,
+    is_static_one,
+    run_slots,
+    scalar_factor,
+    scale_slots,
 )
 from hierarchical_block_sparse_lib_tpu_torch.kernels import (
     fine_epilogue,
@@ -287,19 +293,6 @@ class SymbolicPlan:
     mirror_ok: torch.Tensor | None = None  # bool[]
 
 
-def ids_mismatch(pairs) -> torch.Tensor:
-    """True when any (operand ids, ids a plan was built for) pair differs,
-    in shape or in value: a stale plan's `plan_mismatch` (0-dim bool on
-    the operands' device, no host sync)."""
-    mism = torch.zeros((), dtype=torch.bool, device=pairs[0][0].device)
-    for got, want in pairs:
-        if got.shape != want.shape:
-            mism = torch.ones_like(mism)
-        else:
-            mism = mism | torch.any(got != want)
-    return mism
-
-
 def _norm_drift(plan: SymbolicPlan, norm_filter, a: BlockMatrix, b: BlockMatrix,
                 syrk_upper: bool) -> torch.Tensor:
     """True when the operands' current norms keep another set of pairs
@@ -385,7 +378,7 @@ def make_plan(
 
 
 def alpha_is_one_static(alpha) -> bool:
-    return isinstance(alpha, (int, float)) and float(alpha) == 1.0
+    return is_static_one(alpha)
 
 
 def resolve_backend(
@@ -632,7 +625,7 @@ def spgemm(
                     f"accum_aligned requires the rows backend (got {backend!r}); "
                     "supply row_caps that fit"
                 )
-            if not alpha_is_one_static(alpha):
+            if not is_static_one(alpha):
                 raise ValueError("accum_aligned supports alpha == 1 only")
             if accum.cap != out_cap:
                 raise ValueError(
@@ -666,15 +659,9 @@ def spgemm(
         else:
             n_leaf = torch.full((), -1, dtype=torch.int32, device=dev)
 
-        valid_p = c_id != SENTINEL
         pos_acc = seg = None
         if accum is None:
-            first = first_of_run(c_id)
-            seg = torch.where(valid_p, torch.cumsum(first, 0) - 1, out_cap)
-            n_unique = (first & valid_p).sum().to(torch.int32)
-            out_ids_pre = torch.full((out_cap + 1,), SENTINEL, dtype=torch.int32, device=dev)
-            out_ids_pre[seg.clamp(max=out_cap)] = c_id
-            out_ids_pre = out_ids_pre[:out_cap]
+            seg, out_ids_pre, n_unique = run_slots(c_id, out_cap)
         else:
             if (accum.n_rows, accum.n_cols) != (a.n_rows, b.n_cols):
                 raise ValueError("accum shape mismatch")
@@ -690,10 +677,11 @@ def spgemm(
                     plan_mismatch = plan_mismatch | ids_mismatch(
                         ((accum.ids, plan.acc_ids), (plan.out_ids, plan.acc_ids)))
                 else:
+                    valid_p = c_id != SENTINEL
                     pos = torch.searchsorted(accum.ids, c_id, out_int32=True)
                     member = accum.ids[pos.clamp(max=out_cap - 1).long()] == c_id
-                    plan_mismatch = plan_mismatch | torch.any(valid_p & ~member) | torch.any(
-                        (accum.ids[1:] == accum.ids[:-1]) & accum.valid_mask()[1:])
+                    plan_mismatch = plan_mismatch | torch.any(valid_p & ~member) | (
+                        has_duplicate_ids(accum.ids))
             elif plan is not None and plan.out_ids is not None:
                 if plan.out_ids.shape[0] != out_cap:
                     raise ValueError(
@@ -742,11 +730,11 @@ def spgemm(
                         rkw = dict(zip(("a_norms2", "b_norms2", "tau2"), norm_filter))
                     if accum_aligned:
                         rkw["acc_data"] = accum.data
-                        if not alpha_is_one_static(beta):
+                        if not is_static_one(beta):
                             # The kernel accumulates onto the block it loads:
                             # pre-scale the accumulator by beta in one pass.
                             acc = accum.data.to(acc_dtype)
-                            rkw["acc_data"] = (acc * basic._scalar(beta, acc)).to(torch.float32)
+                            rkw["acc_data"] = (acc * scalar_factor(beta, acc)).to(torch.float32)
                     out_data = pallas_gemm_rows.rows_spgemm(
                         *kargs, precision=precision, triu=syrk_upper, **rkw
                     )
@@ -785,7 +773,7 @@ def spgemm(
         # reference's contract, where slots no pair visits are undefined.
         exact_fill = backend in ("rows", "groups")
         fine_done = backend == "fine"  # its output pass applied alpha and beta
-        if not (fine_done or (exact_fill and alpha_is_one_static(alpha)
+        if not (fine_done or (exact_fill and is_static_one(alpha)
                               and a.dtype == out_data.dtype)):
             # Keep the all-zero padding invariant and apply alpha in one pass.
             slot_valid = out_ids_pre != SENTINEL
@@ -795,23 +783,15 @@ def spgemm(
                 hit = torch.zeros((out_cap + 1,), dtype=torch.bool, device=dev)
                 hit[seg.long().clamp(max=out_cap)] = True
                 slot_valid = slot_valid & hit[:out_cap]
-            out_data = torch.where(
-                slot_valid[:, None, None], out_data * basic._scalar(alpha, out_data), 0
-            ).to(a.dtype)
+            out_data = scale_slots(out_data, slot_valid, alpha, a.dtype)
         if accum is not None and not accum_aligned:
             # Fused beta-accumulate as a gather-add: invert pos_acc with a small
             # int scatter, gather accum's block per union slot (absent -> 0)
             # and add.  pos_acc maps each valid accum slot to a unique union
             # slot only while accum's ids are unique: check it, loudly.
-            plan_mismatch = plan_mismatch | torch.any(
-                (accum.ids[1:] == accum.ids[:-1]) & accum.valid_mask()[1:]
-            )
+            plan_mismatch = plan_mismatch | has_duplicate_ids(accum.ids)
             if not fine_done:
-                acc_blocks = basic.gather_slots(pos_acc, accum.data, out_cap)
-                out_data = out_data.to(acc_dtype)
-                out_data = (
-                    out_data + basic._scalar(beta, out_data) * acc_blocks.to(acc_dtype)
-                ).to(a.dtype)
+                out_data = accumulate_slots(out_data, pos_acc, accum.data, beta, a.dtype)
         c = BlockMatrix(
             ids=out_ids_pre, data=out_data, nnz=torch.clamp(n_unique, max=out_cap),
             n_rows=a.n_rows, n_cols=b.n_cols, block_size=a.block_size,

@@ -13,8 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from hierarchical_block_sparse_lib_tpu_torch.core.block_matrix import BlockMatrix
-from hierarchical_block_sparse_lib_tpu_torch.ops import basic
+from hierarchical_block_sparse_lib_tpu_torch.core.block_matrix import BlockMatrix, scalar_factor
 from hierarchical_block_sparse_lib_tpu_torch.ops.spgemm import matmul_precision
 
 
@@ -43,7 +42,7 @@ def spmm(
     out = torch.zeros((nbr + 1, b, m), dtype=acc, device=x.device)
     out.index_add_(0, brow, prods)
     y = out[:nbr].reshape(nbr * b, m)[: a.n_rows]
-    return (y * basic._scalar(alpha, y)).to(a.dtype)
+    return (y * scalar_factor(alpha, y)).to(a.dtype)
 
 
 def spmv(

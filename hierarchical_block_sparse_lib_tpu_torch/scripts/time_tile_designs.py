@@ -63,7 +63,7 @@ def measure(root: str) -> dict:
     import torch
 
     import hierarchical_block_sparse_lib_tpu_torch as hbsm
-    from hierarchical_block_sparse_lib_tpu_torch.core.block_matrix import first_of_run
+    from hierarchical_block_sparse_lib_tpu_torch.core.block_matrix import run_slots
     from hierarchical_block_sparse_lib_tpu_torch.kernels import _build
     from hierarchical_block_sparse_lib_tpu_torch.kernels import pallas_gemm_groups as pg
     from hierarchical_block_sparse_lib_tpu_torch.kernels import pallas_gemm_rows as pr
@@ -105,8 +105,7 @@ def measure(root: str) -> dict:
     b = random_block_matrix(16384, 128, 0.05, seed=2)
     pc, oc, _, _ = plan_spgemm_ex(b, b)
     plan = hbsm.make_plan(b, b, pc)
-    seg = torch.where(plan.c_id != hbsm.SENTINEL,
-                      torch.cumsum(first_of_run(plan.c_id), 0) - 1, oc).to(torch.int32)
+    seg = run_slots(plan.c_id, oc)[0].to(torch.int32)
     sargs = (b.data, b.data, plan.a_idx, plan.b_idx, seg, oc)
     for prec in ("highest", "default"):
         timed(f"stream B2-tile128 {prec}",

@@ -12,7 +12,11 @@ without the suite's conftest."""
 
 import torch
 
-from hierarchical_block_sparse_lib_tpu_torch.core.block_matrix import SENTINEL, BlockMatrix
+from hierarchical_block_sparse_lib_tpu_torch.core.block_matrix import (
+    SENTINEL,
+    BlockMatrix,
+    scalar_factor,
+)
 from hierarchical_block_sparse_lib_tpu_torch.kernels import pallas_gemm_fine
 from hierarchical_block_sparse_lib_tpu_torch.ops import basic
 from hierarchical_block_sparse_lib_tpu_torch.ops.spgemm import alpha_is_one_static
@@ -33,13 +37,13 @@ def former_output(c, out_ids, alpha=1.0, acc_data=None, pos_acc=None, beta=1.0,
     out_cap = c.shape[0]
     if not (alpha_is_one_static(alpha) and dtype == c.dtype):
         slot_valid = out_ids != SENTINEL
-        c = torch.where(slot_valid[:, None, None], c * basic._scalar(alpha, c), 0).to(dtype)
+        c = torch.where(slot_valid[:, None, None], c * scalar_factor(alpha, c), 0).to(dtype)
     if acc_data is None:
         return c
     acc_dtype = torch.promote_types(dtype, torch.float32)
     acc_blocks = basic.gather_slots(pos_acc, acc_data, out_cap)
     c = c.to(acc_dtype)
-    return (c + basic._scalar(beta, c) * acc_blocks.to(acc_dtype)).to(dtype)
+    return (c + scalar_factor(beta, c) * acc_blocks.to(acc_dtype)).to(dtype)
 
 
 def union_slots_of(out_ids, acc_ids):

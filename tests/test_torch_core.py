@@ -24,7 +24,12 @@ from hierarchical_block_sparse_lib_tpu_torch.convert import (
 )
 from hierarchical_block_sparse_lib_tpu_torch.core.block_matrix import (
     compact_sorted,
+    first_of_run,
+    has_duplicate_ids,
+    ids_mismatch,
+    run_slots,
 )
+from hierarchical_block_sparse_lib_tpu_torch.ops.spgemm import plan_spgemm_ex
 from hierarchical_block_sparse_lib_tpu_torch.runtime import native
 from hierarchical_block_sparse_lib_tpu_torch.utils.generators import (
     random_block_matrix,
@@ -47,6 +52,107 @@ def test_compact_sorted_matches_jax(cap):
     np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]), rtol=1e-6, atol=1e-6)
     assert got[1].shape == (cap, 4, 4)
     assert int(got[2]) == int(want[2])
+
+
+def former_run_slots(ids_sorted, cap):
+    """The run-to-slot block as each caller wrote it before `run_slots`:
+    (unclamped slot, slot with SENTINEL rows counted out of the cumsum,
+    clamped slot, out_ids, n_unique)."""
+    valid = ids_sorted != SENTINEL
+    first = first_of_run(ids_sorted)
+    seg = torch.where(valid, torch.cumsum(first, 0) - 1, cap)
+    seg_valid_first = torch.where(valid, torch.cumsum(first & valid, 0) - 1, cap)
+    clamped = torch.where(valid, torch.cumsum(first, 0) - 1, cap).clamp_(max=cap)
+    out_ids = torch.full((cap + 1,), SENTINEL, dtype=torch.int32)
+    out_ids[clamped] = ids_sorted.to(torch.int32)
+    return seg, seg_valid_first, clamped, out_ids[:cap], (first & valid).sum().to(torch.int32)
+
+
+RUN_CASES = {
+    "empty": ([], 4),
+    "all_sentinel": ([SENTINEL] * 5, 4),
+    "no_repeats": ([1, 4, 7, 9, SENTINEL, SENTINEL], 6),
+    "repeats": ([2, 2, 2, 5, 8, 8, SENTINEL], 5),
+    "past_cap": ([0, 0, 1, 3, 3, 6, 7, 7, 9, SENTINEL], 3),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("case", list(RUN_CASES))
+def test_run_slots_matches_the_former_blocks(case, dtype):
+    """`run_slots` gives the bits of every inline block it replaced: the
+    unclamped slot (spgemm, union_merge), the clamped one (compact_sorted,
+    coarsen, from_coo, the fine structure), the union's ids and size."""
+    ids, cap = RUN_CASES[case]
+    ids = torch.tensor(ids, dtype=dtype)
+    seg, seg_valid_first, clamped, out_ids, n_unique = former_run_slots(ids, cap)
+    slot, got_ids, got_n = run_slots(ids, cap)
+    assert slot.dtype == torch.int64 and torch.equal(slot, seg)
+    assert torch.equal(slot, seg_valid_first)
+    assert torch.equal(slot.clamp(max=cap), clamped)
+    assert got_ids.dtype == torch.int32 and torch.equal(got_ids, out_ids)
+    assert got_n.dtype == torch.int32 and got_n.shape == () and int(got_n) == int(n_unique)
+    valid = ids[ids != SENTINEL]
+    assert int(got_n) == torch.unique(valid).numel()
+
+
+def _stale(case, m, want_cap):
+    """`m` (a plan's operand) as the case leaves it: unchanged, one id
+    moved to an absent one, one slot more (a SENTINEL), or its second id
+    a repeat of its first."""
+    ids, data = m.ids.clone(), m.data
+    if case == "value":
+        present = set(ids.tolist())
+        ids[1] = next(i for i in range(m.nb_rows * m.nb_cols) if i not in present)
+        ids = ids.sort().values
+    elif case == "capacity":
+        ids = torch.cat([ids, torch.tensor([SENTINEL], dtype=torch.int32)])
+        data = torch.cat([data, torch.zeros_like(data[:1])])
+    elif case == "duplicate":
+        ids[1] = ids[0]
+    out = tx.BlockMatrix(ids=ids, data=data, nnz=m.nnz, n_rows=m.n_rows, n_cols=m.n_cols,
+                         block_size=m.block_size)
+    if case == "capacity" and want_cap is not None:
+        # add_planned holds the two capacities' sum: the other operand
+        # gives up one of its padding slots.
+        want_cap = want_cap - 1
+    return out, want_cap
+
+
+@pytest.mark.parametrize("entry", ["spgemm", "fine_matmul", "add_planned"])
+@pytest.mark.parametrize("case", ["same", "value", "capacity", "duplicate"])
+def test_stale_plans_flag_alike(case, entry):
+    """One staleness rule (`ids_mismatch`) and one duplicate rule
+    (`has_duplicate_ids`): a planned multiply, a planned fine multiply and
+    a planned add flag the same operand changes, and only those."""
+    _, a = matrix_pair(8, 8, 16, 0.3, seed=3, pad=2)
+    _, b = matrix_pair(8, 8, 16, 0.3, seed=4, pad=2)
+    a2, b_cap = _stale(case, a, b.cap if entry == "add_planned" else None)
+    rule = bool(ids_mismatch(((a2.ids, a.ids),)) | has_duplicate_ids(a2.ids))
+    assert rule == (case != "same")
+    assert bool(has_duplicate_ids(a2.ids)) == (case == "duplicate")
+    if entry == "add_planned":
+        plan = tx.make_add_plan(a.ids, b.ids, a.cap + b.cap)
+        b2 = tx.BlockMatrix(ids=b.ids[:b_cap], data=b.data[:b_cap], nnz=b.nnz,
+                            n_rows=b.n_rows, n_cols=b.n_cols, block_size=b.block_size)
+        _, flag = tx.add_planned(a2, b2, plan)
+        assert bool(flag) == rule
+        return
+    pc, oc, mbr, mcr = plan_spgemm_ex(a, b)
+    if entry == "spgemm":
+        plan = tx.make_plan(a, b, pc)
+        _, info = tx.spgemm(a2, b, pc, oc, plan=plan, backend="xla")
+    else:
+        plan = tx.make_fine_plan(a, b, pc, oc, (mbr, mcr))
+        args = (tx.fine_pack(a2), tx.fine_pack(b), pc, oc, (mbr, mcr))
+        if case == "capacity":
+            # The plan's kernel tables are sized to the planned capacity:
+            # the kernel refuses them, loudly, before any flag is read.
+            with pytest.raises((RuntimeError, ValueError)):
+                tx.fine_matmul(*args, plan=plan)
+            return
+        _, info = tx.fine_matmul(*args, plan=plan)
+    assert bool(info.plan_mismatch) == rule
 
 
 @pytest.mark.parametrize("b,threshold", [(16, 0.0), (32, 12.0)])

@@ -1,7 +1,8 @@
 """The 128-tile GEMM kernels' contracts on the CPU (gemm_rows.cu,
 gemm_stream.cu, gemm_groups.cu through kernels/csrc/gemm_tile.cuh): the
-ctypes tables against the C entries, a plain model of the 3xTF32 split
-that "highest" runs on the tensor cores, and the two-checkout timer
+ctypes tables against the C entries (theirs and those of the fine kernel,
+the norms, the union-add and the fine output pass), a plain model of the
+3xTF32 split that "highest" runs on the tensor cores, and the two-checkout timer
 without a card.
 
 The model: TF32 keeps 10 of float32's 23 fraction bits; `cvt.rna.tf32.f32`
@@ -18,9 +19,13 @@ import re
 import numpy as np
 import pytest
 
+from hierarchical_block_sparse_lib_tpu_torch.kernels import fine_epilogue as fe
+from hierarchical_block_sparse_lib_tpu_torch.kernels import pallas_gemm_fine as pf
 from hierarchical_block_sparse_lib_tpu_torch.kernels import pallas_gemm_groups as pg
 from hierarchical_block_sparse_lib_tpu_torch.kernels import pallas_gemm_rows as pr
 from hierarchical_block_sparse_lib_tpu_torch.kernels import pallas_gemm_stream as ps
+from hierarchical_block_sparse_lib_tpu_torch.kernels import pallas_norms as pn
+from hierarchical_block_sparse_lib_tpu_torch.kernels import union_add as ua
 
 ROWS_TOL = 1e-5  # chip_smoke.py's gate of the 128-tile kernels against their plain versions
 CSRC = os.path.join(os.path.dirname(pr.__file__), "csrc")
@@ -38,23 +43,34 @@ def tf32_split(x):
     return big, tf32_rna(x - big)
 
 
+C_TYPES = {"float": ctypes.c_float, "double": ctypes.c_double, "long": ctypes.c_longlong,
+           "int": ctypes.c_int}
+
+
 @pytest.mark.parametrize("source, module", [("gemm_rows.cu", pr), ("gemm_stream.cu", ps),
-                                            ("gemm_groups.cu", pg)])
+                                            ("gemm_groups.cu", pg), ("gemm_fine.cu", pf),
+                                            ("norms.cu", pn), ("union_add.cu", ua),
+                                            ("fine_epilogue.cu", fe)])
 def test_ctypes_signatures_match_the_c_entries(source, module):
-    """Each C entry takes as many arguments, pointers, floats and ints in the
-    same places, as the wrapper's ctypes table declares (a short table
-    would be caught only by a launch on the card)."""
+    """Each C entry takes as many arguments, pointers, floats, doubles, long
+    longs and ints in the same places, and returns what the wrapper's
+    ctypes table declares (an int error code unless it says otherwise): a
+    short table would be caught only by a launch on the card."""
     src = open(os.path.join(CSRC, source)).read()
-    entries = dict(re.findall(r"^int (hbsm_\w+)\(([^)]*)\)", src, re.M))
+    found = re.findall(r"^(int|long long) (hbsm_\w+)\(([^)]*)\)", src, re.M)
+    entries = {name: params for _, name, params in found}
     assert set(entries) == set(module.SIGNATURES)
 
     def kind(param):
         if "*" in param:
             return ctypes.c_void_p
-        return ctypes.c_float if param.split()[0] == "float" else ctypes.c_int
+        return C_TYPES[param.split()[0]]
 
     for name, params in entries.items():
         assert [kind(p) for p in params.split(",")] == module.SIGNATURES[name], name
+    for ret, name, _ in found:
+        restype = getattr(module, "_RESTYPES", {}).get(name, ctypes.c_int)
+        assert restype == C_TYPES[ret.split()[0]], name
 
 
 def test_tf32_rounding_model():
