@@ -230,7 +230,16 @@ final line):
     and beta 2 on the card): bit for bit equal to its plain version and to
     the former passes (transpose, ×alpha where, gather, ×beta add); call
     times in turns with the plain version; device time of the pass and of
-    its slot map against the pass's byte bound; device operations a call.
+    its slot map against the pass's byte bound; device operations a call;
+25. (run after phase 24, in its own process: ``python3 chip_smoke.py
+    --phase25`` runs it alone) the truncation's two passes at the
+    b3_sp2.planned step's capacities (262 144 slots of 32 x 32, 172 000
+    valid, cap 65 536): given the same keep, bit for bit the plain
+    compaction; the keep decisions that differ from the former chain's
+    (torch reductions, cumsum, scatter, gather), each within rounding of
+    tau^2; call times in turns with the former chain; device time of each
+    pass against their byte bound; device operations a call, the former
+    chain's beside them.
 
 Every add on the card launches the union-add kernel once, so each path's
 exact launch check counts it too (phase 4's chain 1, syrk 1, the ring and
@@ -238,7 +247,10 @@ Cannon one a shard a stage, the routed SP2 step one a shard, chebyshev
 one a term unplanned and one planned), and the JSON line's count of it,
 as of every kernel, is the sum of the checked paths' counts.  Every
 spgemm on the fine backend launches the output pass once (the class's two
-B2 multiplies in phase 16, the acceptance's fine-branch products).
+B2 multiplies in phase 16, the acceptance's fine-branch products).  Every
+truncation on the card launches the truncate kernels' two passes; at
+128-wide f32 and bf16 leaves it also launches norms_and_keep once, and
+each such path's check names both counts.
 
 Phase 2 also prints each fine-kernel launch's k-chunk, shared memory,
 occupancy, registers and spills at B2's B row cap.  Prints the card line
@@ -288,6 +300,7 @@ KERNELS = {
     "union_add": (_CSRC + "union_add.cu", "none: the JAX package's add is plain XLA"),
     "fine_epilogue": (_CSRC + "fine_epilogue.cu",
                       "none: the JAX package applies alpha and the accumulate in XLA"),
+    "truncate": (_CSRC + "truncate.cu", "none: the JAX package truncates in jnp"),
 }
 MICRO_KERNELS = ("micro", "e2", "e3", "e12")
 B3_KERNELS = ("rows_spgemm", "norms_and_keep", "block_frob_squared")
@@ -960,7 +973,8 @@ def b3_input():
 def wrappers():
     """Kernel name -> the wrapper that counts its launches, for the paths'
     exact counts (the union-add: one launch an add on the card; the fine
-    epilogue: one a fine-branch spgemm)."""
+    epilogue: one a fine-branch spgemm; the truncate kernels: two passes a
+    truncation)."""
     from hierarchical_block_sparse_lib_tpu_torch.kernels import (
         fine_epilogue,
         micro_fine,
@@ -970,6 +984,7 @@ def wrappers():
         pallas_gemm_rows,
         pallas_gemm_stream,
         pallas_norms,
+        truncate,
         union_add,
     )
 
@@ -984,6 +999,7 @@ def wrappers():
         "gather_gemm_accumulate": pallas_gemm.gather_gemm_accumulate,
         "union_add": union_add.union_add,
         "fine_epilogue": fine_epilogue.fine_epilogue,
+        "truncate": truncate.truncate_kernel,
     }
 
 
@@ -1301,8 +1317,8 @@ def purify_b3(A, prof, scan):
     x, stats = hbsm.purify(A, steps, tau, pair_cap=prof.pair_cap, out_cap=prof.out_cap,
                            target_trace=n / 2, cap=prof.cap)
     torch.cuda.synchronize()
-    got = launched({"gather_gemm_accumulate_stream": steps, "norms_and_keep": steps},
-                   "purify on B3")
+    got = launched({"gather_gemm_accumulate_stream": steps, "norms_and_keep": steps,
+                    "truncate": 2 * steps}, "purify on B3")
     if backend != "pallas":
         raise AssertionError(f"purify at b=128 resolves to {backend!r}")
     for k, st in enumerate(stats):
@@ -2852,7 +2868,8 @@ def models_b3(card, A):
         card, f"polynomial (caps {pc}, {oc})",
         lambda: models.polynomial(A, coeffs, tau, pc, oc),
         lambda: models.polynomial(A, coeffs, tau, pc, oc, plans=hp),
-        {"gather_gemm_accumulate_stream": steps, "norms_and_keep": steps})
+        {"gather_gemm_accumulate_stream": steps, "norms_and_keep": steps,
+         "truncate": 2 * steps})
     add(got)
     d = hbsm.to_dense(A).double()
     eye = torch.eye(n, dtype=torch.float64, device=d.device)
@@ -2882,7 +2899,7 @@ def models_b3(card, A):
         card, f"chebyshev_apply, 25 terms (caps {pc}, {oc})",
         lambda: models.chebyshev_apply(H, c, tau, pc, oc, row_caps=rc),
         lambda: models.chebyshev_apply(H, c, tau, pc, oc, row_caps=rc, plans=cp),
-        {"rows_spgemm": terms, "norms_and_keep": terms},
+        {"rows_spgemm": terms, "norms_and_keep": terms, "truncate": 2 * terms},
         adds=(terms + 1, 1))  # planned, only the first add is not add_planned
     add(got)
     w, V = torch.linalg.eigh(hbsm.to_dense(H).double())
@@ -2915,7 +2932,7 @@ def models_b3(card, A):
         lambda: models.inv_sqrt_newton_schulz(S, theta, 25, tau, pc, oc, row_caps=rc),
         lambda: models.inv_sqrt_newton_schulz(S, theta, 25, tau, pc, oc, row_caps=rc,
                                               plans=nsp),
-        {"rows_spgemm": 75, "norms_and_keep": 25})
+        {"rows_spgemm": 75, "norms_and_keep": 25, "truncate": 50})
     add(got)
     zd = hbsm.to_dense(Z).double()
     r = zd.T @ S_d.double() @ zd - eye
@@ -2956,7 +2973,7 @@ def subtree_b3(A, prof):
     reset_counts()
     T = hbsm.truncate(A2, tau_s, subtree_level=level)
     torch.cuda.synchronize()
-    got = launched({"block_frob_squared": 1}, "subtree truncate")
+    got = launched({"block_frob_squared": 1, "truncate": 2}, "subtree truncate")
     kept = T.ids.cpu().numpy()[: int(T.nnz)]
     print(f"[subtree] B3 step-1 product ({int(info.n_block_pairs)} pairs, {int(A2.nnz)} blocks): "
           f"{len(node_norm)} level-{level} nodes; tau {tau_s:.6e}; kept {len(kept)} blocks, "
@@ -3189,14 +3206,16 @@ def b5_sp2(mesh, A, total):
     tau, nocc = 1e-7, nb * b // 2
     pc, oc, mbr, mcr = plan_spgemm_ex(X, X)
     y_ref, st_ref = counted(
-        total, {"rows_spgemm": 1, "norms_and_keep": 1}, "B5 single-device SP2 step",
+        total, {"rows_spgemm": 1, "norms_and_keep": 1, "truncate": 2},
+        "B5 single-device SP2 step",
         lambda: sp2_step(X, tau, pair_cap=pc, out_cap=oc, target_trace=nocc, cap=oc,
                          row_caps=(mbr, mcr)))
     Xd = dist.distribute(X, mesh)
     xplan = route.plan_route(Xd, Xd, mesh.size)
     xfrozen = route.freeze_route_plan(Xd, Xd, xplan)
     want = {"rows_spgemm": mesh.size * len(xplan.stages), "norms_and_keep": mesh.size,
-            "union_add": mesh.size}  # each shard's blend is one add
+            "truncate": 2 * mesh.size,
+            "union_add": mesh.size}  # each shard's blend is one add, each truncation two passes
     Yd, sst = counted(total, want, "B5 routed SP2 step",
                       lambda: route.dist_sp2_step_routed(Xd, mesh, xfrozen, tau, target_trace=nocc,
                                                          expect_ids=Xd.stacked_ids()))
@@ -3237,7 +3256,7 @@ def cannon_b5(total):
     a64 = A.with_data(A.data.double())
     C64, _ = hbsm.spgemm(a64, a64, pc, oc, backend="xla")
     err = against("Cannon 2x2", C2, C64)
-    T2 = counted(total, {"norms_and_keep": 4}, "Cannon truncate",
+    T2 = counted(total, {"norms_and_keep": 4, "truncate": 8}, "Cannon truncate",
                  lambda: dist2d.dist2d_truncate(C2, mesh2, 1e-8))
     f2 = float(dist2d.dist2d_frob_squared(T2, mesh2))
     f64 = float(torch.sum(C64.data ** 2))
@@ -4219,11 +4238,136 @@ def fine_epilogue_phase(card) -> dict:
     return rec
 
 
+# Phase 25: the truncation's two passes at the SP2 step's sizes, in its own
+# process (`python3 chip_smoke.py --phase25`).
+
+
+def truncate_path(card) -> dict:
+    """Phase 25's work, in this process: the truncation at the
+    b3_sp2.planned step's capacities (262 144 slots of 32 x 32, 172 000
+    valid, a threshold keeping ~24 000, cap 65 536) against the plain
+    compaction given the same keep, bit for bit, and against the former
+    chain; call times in turns with the former chain; device time of each
+    pass against their byte bound; device operations a call."""
+    import torch
+
+    from hierarchical_block_sparse_lib_tpu_torch.core.block_matrix import SENTINEL
+    from hierarchical_block_sparse_lib_tpu_torch.kernels import truncate as tk
+    from hierarchical_block_sparse_lib_tpu_torch.ops.norms import squared_threshold
+    from hierarchical_block_sparse_lib_tpu_torch.ops.truncate import (
+        compact_reference,
+        keep_reference,
+        truncate,
+        truncate_reference,
+    )
+
+    # The yardstick the tests share (tests/former_truncate.py, no jax).
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from former_truncate import bits, former_truncate, sp2_step_matrix
+
+    cap = 65_536
+    a, tau = sp2_step_matrix(torch.device("cuda"), seed=25)
+    torch.cuda.synchronize()
+    reset_counts()
+    got, kept = truncate(a, tau, cap=cap)
+    torch.cuda.synchronize()
+    launched({"truncate": 2}, "the SP2 step's truncation")
+    n2, keep = tk.block_norms_keep(a.ids, a.data, squared_threshold(tau, torch.float32))
+    want, want_kept = compact_reference(a, keep, cap)
+    if not (torch.equal(got.ids, want.ids) and torch.equal(bits(got.data), bits(want.data))
+            and torch.equal(got.nnz, want.nnz) and torch.equal(kept, want_kept)):
+        raise AssertionError("truncate kernels differ from the plain compaction at the SP2 step")
+    former, former_kept = former_truncate(a, tau, cap=cap)
+    n2_64 = a.data.double().square().sum(dim=(1, 2))
+    t2 = float(squared_threshold(tau, torch.float32))
+    differ = keep != keep_reference(a, tau)
+    far = (n2_64 - t2).abs() > 8 * torch.finfo(torch.float32).eps * t2
+    if bool((differ & far).any()):
+        raise AssertionError("the norm pass keeps or drops a block far from tau^2 unlike the "
+                             "former chain")
+    rel = float(((n2.double() - n2_64).abs() / n2_64.clamp(min=1e-300))[a.ids != SENTINEL].max())
+    if rel > 1e-6:
+        raise AssertionError(f"the norm pass's norms are {rel:.3e} from a float64 sum (> 1e-6)")
+    n_valid, n_kept = int((a.ids != SENTINEL).sum()), int(kept)
+    n_differ = int(differ.sum())
+    if n_differ == 0 and not (torch.equal(got.ids, former.ids)
+                              and torch.equal(bits(got.data), bits(former.data))):
+        raise AssertionError("same keep as the former chain, other result")
+    # The error against the plain version where every keep decision agrees;
+    # else against the plain compaction of the kernel's keep, the blocks
+    # then sitting in other slots.
+    plain = truncate_reference(a, tau, cap=cap)[0] if n_differ == 0 else want
+    if not torch.equal(got.ids, plain.ids):
+        raise AssertionError("truncate kernels keep other ids than the plain version")
+    err = float((got.data.double() - plain.data.double()).abs().max())
+    yardstick = "the plain version" if n_differ == 0 else "the plain compaction of its keep"
+    print(f"[phase25] SP2 step truncation ({a.cap} slots, {n_valid} valid, {n_kept} kept, cap "
+          f"{cap}): bitwise equal to the plain compaction given the kernel's keep; max abs err "
+          f"against {yardstick} {err:.3e}; norms within {rel:.2e} of a float64 sum (limit "
+          f"1e-6); {n_differ} keep decisions differ from the former chain's, each within 8 ulps "
+          f"of tau^2" + ("; result bitwise equal to the former chain's" if n_differ == 0 else ""))
+    del want, former, plain, n2_64
+    ms, former_ms, four = alternate(lambda: truncate(a, tau, cap=cap),
+                                    lambda: former_truncate(a, tau, cap=cap))
+    print(f"[time] {card}: truncation at the SP2 step, median of 7, in turns former, kernels, "
+          f"kernels, former: kernels {four[0]:.3f} / {four[1]:.3f} ms, the former chain "
+          f"{four[2]:.3f} / {four[3]:.3f} ms; one-call library: none (no torch call ranks and "
+          f"gathers kept blocks into given slots)")
+    reps = 20
+    dev = device_profile("truncation at the SP2 step", lambda: truncate(a, tau, cap=cap), reps,
+                         card)
+    old = device_profile("the former chain at the SP2 step",
+                         lambda: former_truncate(a, tau, cap=cap), reps, card)
+    norms_us = per_call_us(dev, reps, "truncate_norms_kernel")
+    compact_us = per_call_us(dev, reps, "truncate_compact_kernel")
+    old_us = per_call_us(old, reps)
+    ops_new = sum(n for _, n in dev.values()) / reps
+    ops_old = sum(n for _, n in old.values()) / reps
+    # The two passes' bound: the norm pass reads the valid blocks, the
+    # compaction the kept ones and writes every output slot; ids, keep
+    # bytes and counts are ~0.3%.  The truncation's own floor skips the
+    # second read of the kept blocks (a one-pass design).
+    block = a.data[0].numel() * a.data.element_size()
+    pass_bytes = (n_valid + min(n_kept, cap) + cap) * block
+    bound_ms, by = bound(0, pass_bytes)
+    floor_ms, _ = bound(0, (n_valid + cap) * block)
+    passes_us = norms_us + compact_us
+    share = bound_ms * 1e3 / passes_us if passes_us else None
+    floor_share = floor_ms * 1e3 / passes_us if passes_us else None
+    print(f"[phase25] {card}: norm pass {norms_us:.1f} us + compaction {compact_us:.1f} us a "
+          f"call against the two passes' byte bound {bound_ms * 1e3:.1f} us ({n_valid} valid "
+          f"blocks and {min(n_kept, cap)} kept blocks read, {cap} slots written, "
+          f"{pass_bytes / 1e9:.3f} GB at 3.35 TB/s): "
+          + ("not measured" if share is None else
+             f"{100 * share:.1f}% of that bound, {100 * floor_share:.1f}% of the truncation's "
+             f"floor {floor_ms * 1e3:.1f} us (the kept blocks not read again)")
+          + f"; device operations a call {ops_new:.1f}, the former chain {ops_old:.1f} "
+          f"({old_us:.1f} us of device time)")
+    if dev and ops_new > 4:
+        raise AssertionError(f"the truncation launches {ops_new} device operations a call")
+    return {"launches": {"truncate": 2}, "numbers": {
+        "ms": ms, "former_ms": former_ms, "bound_ms": bound_ms, "bound_by": by,
+        "norms_us": norms_us, "compact_us": compact_us, "passes_us": passes_us, "share": share,
+        "ops": ops_new, "former_ops": ops_old, "former_us": old_us, "differ": n_differ,
+        "norm_rel_err": rel, "max_abs_err": err, "floor_ms": floor_ms, "floor_share": floor_share,
+    }}
+
+
+def truncate_phase(card) -> dict:
+    """Phase 25 in its own process (`python3 chip_smoke.py --phase25`).
+    Returns its record (launches and numbers)."""
+    t0 = time.perf_counter()
+    rec = phase_process("phase25", 300)
+    print(f"[phase25] phase wall {time.perf_counter() - t0:.1f} s (its own process)")
+    return rec
+
+
 def phase_main(phase: str) -> int:
-    """`python3 chip_smoke.py --phase21`, `--phase22`, `--phase23` or
-    `--phase24`: that phase alone (phase 21's, 23's and 24's kernels built
-    if they are not), its last line one JSON object (phase 21's, 23's and
-    24's launches and numbers, phase 22's wall time)."""
+    """`python3 chip_smoke.py --phase21`, `--phase22`, `--phase23`,
+    `--phase24` or `--phase25`: that phase alone (phase 21's, 23's, 24's
+    and 25's kernels built if they are not), its last line one JSON object
+    (phase 21's, 23's, 24's and 25's launches and numbers, phase 22's wall
+    time)."""
     import torch
 
     if not torch.cuda.is_available():
@@ -4237,10 +4381,13 @@ def phase_main(phase: str) -> int:
         _build.load_all(["gemm_fine", "union_add"])
     if phase == "--phase24":
         _build.load_all(["fine_epilogue"])
+    if phase == "--phase25":
+        _build.load_all(["truncate"])
     card = card_line()
     print(card)
     paths = {"--phase21": wide_leaf_path, "--phase22": lambda _: members_path(),
-             "--phase23": union_add_path, "--phase24": fine_epilogue_path}
+             "--phase23": union_add_path, "--phase24": fine_epilogue_path,
+             "--phase25": truncate_path}
     print(json.dumps(paths[phase](card)))
     return 0
 
@@ -4271,7 +4418,7 @@ def main() -> int:
     # Phase 2: build, one nvcc per source, all started together.
     t0 = time.perf_counter()
     _build.load_all(["gemm_fine", "gemm_rows", "norms", "gemm_stream", "gemm_groups",
-                     "micro_fine", "union_add", "fine_epilogue"])
+                     "micro_fine", "union_add", "fine_epilogue", "truncate"])
     print(f"[build] kernels ready in {time.perf_counter() - t0:.1f} s")
     for name, (secs, log) in sorted(_build.build_logs.items()):
         print(f"[build] nvcc {name}: {secs:.1f} s")
@@ -4451,6 +4598,14 @@ def main() -> int:
         device_ms=f["pass_us"] / 1e3 if f["pass_us"] else None,
     )
 
+    # Phase 25: the truncation's two passes at the SP2 step, in a subprocess.
+    p25 = truncate_phase(card)
+    t = p25["numbers"]
+    entries["truncate"] = dict(
+        max_abs_err=t["max_abs_err"], ms=t["ms"], plain_ms=t["former_ms"], bound=(t["bound_ms"], t["bound_by"]),
+        library_ms=None, device_ms=t["passes_us"] / 1e3 if t["passes_us"] else None,
+    )
+
     entries["fine_spgemm"] = dict(
         max_abs_err=fine_err, ms=fine_ms, plain_ms=fine_plain_ms,
         bound=fine_bound, library_ms=None,
@@ -4459,7 +4614,7 @@ def main() -> int:
         b3_launches, fine_spgemm=fine_launches, groups_spgemm=b1_launches + b4_groups,
         gather_gemm_accumulate_stream=b2t_launches + purify_launches,
         gather_gemm_accumulate=v1_launches, union_add=b2_launches["union_add"],
-        fine_epilogue=0, **micro_launches,
+        fine_epilogue=0, truncate=p25["launches"]["truncate"], **micro_launches,
     )
     launches["rows_spgemm"] += b4_rows
     for name, n16 in p16.items():
@@ -4483,7 +4638,9 @@ def main() -> int:
           f"{p16['fine_epilogue']} through the class (phase 16) and the acceptance's fine-branch "
           f"products (phase 19); union_add: "
           f"{b2_launches['union_add']} in the B2 chain + {p16['union_add']} in syrk (phase 16) "
-          f"and those in the phases below; phase 17 (SpAMM, aligned, "
+          f"and those in the phases below; truncate: {p25['launches']['truncate']} at the SP2 "
+          f"step (phase 25), two a norms_and_keep launch and two the subtree truncation in "
+          f"the phases below; phase 17 (SpAMM, aligned, "
           f"models, subtree, demo): {p17}; phase 18 (distribution at B5): {p18}; phase 19 "
           f"(acceptance and bench): {p19}; phase 20 (the ablation scripts): {p20}; phase 21 "
           f"(leaf 256: B4, B4full, B5): {p21}")
@@ -4516,5 +4673,6 @@ def main() -> int:
 if __name__ == "__main__":
     phase = sys.argv[1:]
     sys.exit(phase_main(phase[0])
-             if phase in (["--phase21"], ["--phase22"], ["--phase23"], ["--phase24"])
+             if phase in (["--phase21"], ["--phase22"], ["--phase23"], ["--phase24"],
+                          ["--phase25"])
              else main())

@@ -1,7 +1,7 @@
 """The 128-tile GEMM kernels' contracts on the CPU (gemm_rows.cu,
 gemm_stream.cu, gemm_groups.cu through kernels/csrc/gemm_tile.cuh): the
 ctypes tables against the C entries (theirs and those of the fine kernel,
-the norms, the union-add and the fine output pass), a plain model of the
+the norms, the union-add, the fine output pass and the truncation), a plain model of the
 3xTF32 split that "highest" runs on the tensor cores, and the two-checkout timer
 without a card.
 
@@ -25,6 +25,7 @@ from hierarchical_block_sparse_lib_tpu_torch.kernels import pallas_gemm_groups a
 from hierarchical_block_sparse_lib_tpu_torch.kernels import pallas_gemm_rows as pr
 from hierarchical_block_sparse_lib_tpu_torch.kernels import pallas_gemm_stream as ps
 from hierarchical_block_sparse_lib_tpu_torch.kernels import pallas_norms as pn
+from hierarchical_block_sparse_lib_tpu_torch.kernels import truncate as tk
 from hierarchical_block_sparse_lib_tpu_torch.kernels import union_add as ua
 
 ROWS_TOL = 1e-5  # chip_smoke.py's gate of the 128-tile kernels against their plain versions
@@ -50,7 +51,7 @@ C_TYPES = {"float": ctypes.c_float, "double": ctypes.c_double, "long": ctypes.c_
 @pytest.mark.parametrize("source, module", [("gemm_rows.cu", pr), ("gemm_stream.cu", ps),
                                             ("gemm_groups.cu", pg), ("gemm_fine.cu", pf),
                                             ("norms.cu", pn), ("union_add.cu", ua),
-                                            ("fine_epilogue.cu", fe)])
+                                            ("fine_epilogue.cu", fe), ("truncate.cu", tk)])
 def test_ctypes_signatures_match_the_c_entries(source, module):
     """Each C entry takes as many arguments, pointers, floats, doubles, long
     longs and ints in the same places, and returns what the wrapper's
