@@ -32,7 +32,8 @@ error-controlled multiply ``spamm`` (``plan_spamm``; the row-panel
 kernel's norm skip), the aligned accumulate, the planned add
 (``make_add_plan``/``add_planned``), the model drivers ``polynomial``,
 ``chebyshev_apply`` and ``inv_sqrt_newton_schulz`` with their plans
-(``models``), and the norms ``frob_norm``, ``nnz_blocks``,
+(``models``; Newton-Schulz also through ``profile_inv_sqrt`` and
+``InvSqrtEngine``), and the norms ``frob_norm``, ``nnz_blocks``,
 ``gershgorin_bound`` and ``subtree_frob_squared`` with subtree
 ``truncate``; and the distribution (``parallel``): a single-process mesh
 of torch devices (``parallel.mesh``) with ring SUMMA (``dist``), Cannon
@@ -149,6 +150,10 @@ from hierarchical_block_sparse_lib_tpu_torch.models.purification import (
     purify_scan,
     sp2_step,
 )
+from hierarchical_block_sparse_lib_tpu_torch.models.inverse_factor import (
+    InvSqrtEngine,
+    profile_inv_sqrt,
+)
 from hierarchical_block_sparse_lib_tpu_torch.utils.serialization import load, save
 from hierarchical_block_sparse_lib_tpu_torch.api import HierarchicalBlockSparseMatrix
 
@@ -218,6 +223,8 @@ __all__ = [
     "purify",
     "purify_scan",
     "sp2_step",
+    "InvSqrtEngine",
+    "profile_inv_sqrt",
     "BandMatrix",
     "band_from_blocks",
     "band_from_dense",

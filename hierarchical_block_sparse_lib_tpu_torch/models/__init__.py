@@ -19,9 +19,11 @@ from hierarchical_block_sparse_lib_tpu_torch.models.polynomial import (
     polynomial,
 )
 from hierarchical_block_sparse_lib_tpu_torch.models.inverse_factor import (
+    InvSqrtEngine,
     NSPlans,
     inv_sqrt_newton_schulz,
     plan_inv_sqrt,
+    profile_inv_sqrt,
 )
 from hierarchical_block_sparse_lib_tpu_torch.models.chebyshev import (
     ChebPlans,
@@ -46,6 +48,8 @@ __all__ = [
     "NSPlans",
     "inv_sqrt_newton_schulz",
     "plan_inv_sqrt",
+    "profile_inv_sqrt",
+    "InvSqrtEngine",
     "ChebPlans",
     "chebyshev_apply",
     "chebyshev_coeffs",

@@ -19,9 +19,12 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from hierarchical_block_sparse_lib_tpu_torch.core.block_matrix import (
-    SENTINEL,
-    BlockMatrix,
+from hierarchical_block_sparse_lib_tpu_torch.core.block_matrix import BlockMatrix
+from hierarchical_block_sparse_lib_tpu_torch.models.engine import (
+    CapacityProfile,
+    PlannedEngine,
+    ids_differ,
+    next_pow2,
 )
 from hierarchical_block_sparse_lib_tpu_torch.ops import basic, repack as repack_mod
 from hierarchical_block_sparse_lib_tpu_torch.ops.norms import trace
@@ -291,7 +294,7 @@ def purify(
     return x, stats
 
 
-class PurifyEngine:
+class PurifyEngine(PlannedEngine):
     """SCF-regime runner: profile and plan once, reuse the planned scan
     across cycles, and re-profile/re-plan when the iterate's structure
     drifts off the planned trajectory or a capacity overflows.
@@ -302,7 +305,10 @@ class PurifyEngine:
 
     `run` reads the device once per cycle (the drift/overflow check);
     replans are counted in `n_replans`.  `margin` loosens the profiled
-    capacities so small support growth does not force a replan."""
+    capacities so small support growth does not force a replan.
+    `run(x)` returns (X_final, stacked stats)."""
+
+    SPAN = "hbsm.purify"
 
     def __init__(
         self,
@@ -315,44 +321,39 @@ class PurifyEngine:
     ):
         # symmetric=True runs the planned symmetric tier on the generic
         # capacity profile: its plans use the generic union and pairs.
+        super().__init__()
         self.n_steps = n_steps
         self.tau = tau
         self.target_trace = target_trace
         self.backend = backend
         self.margin = margin
         self.symmetric = symmetric
-        self.prof: CapacityProfile | None = None
-        self.plans: PurifyPlans | None = None
-        self.n_replans = 0
 
-    def _replan(self, x: BlockMatrix) -> None:
-        with span("hbsm.replan"):
-            prof = profile_purify(
-                x, self.n_steps, self.tau, target_trace=self.target_trace,
-                backend=self.backend, margin=self.margin,
-            )
-            # Pow2-bucket the envelope so nearby structures share capacities.
-            self.prof = dataclasses.replace(
-                prof,
-                pair_cap=_next_pow2(prof.pair_cap),
-                out_cap=_next_pow2(prof.out_cap),
-                cap=_next_pow2(prof.cap),
-                row_caps=tuple(_next_pow2(r) for r in prof.row_caps),
-            )
-            self.plans = plan_purify(
-                x, self.n_steps, self.tau, self.prof,
-                target_trace=self.target_trace, backend=self.backend,
-                symmetric=self.symmetric,
-            )
-            self.n_replans += 1
+    def _profile(self, x: BlockMatrix) -> CapacityProfile:
+        return profile_purify(
+            x, self.n_steps, self.tau, target_trace=self.target_trace,
+            backend=self.backend, margin=self.margin,
+        )
+
+    def _plan(self, x: BlockMatrix) -> PurifyPlans:
+        return plan_purify(
+            x, self.n_steps, self.tau, self.prof,
+            target_trace=self.target_trace, backend=self.backend,
+            symmetric=self.symmetric,
+        )
+
+    def _run_planned(self, x: BlockMatrix):
+        return purify_scan(
+            x, self.n_steps, self.tau, target_trace=self.target_trace,
+            backend=self.backend, plans=self.plans, symmetric=self.symmetric,
+            **self.prof.kwargs(),
+        )
 
     @staticmethod
-    def _bad(stats: PurificationStats) -> bool:
-        with span("hbsm.engine_check"):
-            return bool(torch.any(
-                stats.plan_mismatch | stats.pair_overflow
-                | stats.out_overflow | stats.repack_overflow
-            ))
+    def _failed(out) -> torch.Tensor:
+        stats = out[1]
+        return (stats.plan_mismatch | stats.pair_overflow
+                | stats.out_overflow | stats.repack_overflow)
 
     def _stale(self, x: BlockMatrix) -> bool:
         """Compare the iterate's structure with the planned step-0 input
@@ -360,61 +361,7 @@ class PurifyEngine:
         with span("hbsm.engine_check"):
             if int(x.nnz) > self.prof.cap:
                 return True
-            got = x.ids.cpu().numpy()
-            exp = self.plans.expected_ids[0].cpu().numpy()
-            got = got[got != SENTINEL]
-            exp = exp[exp != SENTINEL]
-            return got.shape != exp.shape or bool(np.any(got != exp))
-
-    def run(self, x: BlockMatrix):
-        """One purification at the cached plan; replans and reruns when the
-        structure drifted.  Returns (X_final, stacked stats)."""
-        with span("hbsm.purify"):
-            if self.plans is None or self._stale(x):
-                self._replan(x)
-            kw = dict(
-                target_trace=self.target_trace, backend=self.backend,
-                plans=self.plans, symmetric=self.symmetric, **self.prof.kwargs(),
-            )
-            xf, stats = purify_scan(x, self.n_steps, self.tau, **kw)
-            if self._bad(stats):
-                self._replan(x)
-                kw["plans"] = self.plans
-                kw.update(self.prof.kwargs())
-                xf, stats = purify_scan(x, self.n_steps, self.tau, **kw)
-                if self._bad(stats):
-                    raise RuntimeError(
-                        "PurifyEngine: overflow/mismatch persists after a fresh "
-                        "replan: inspect stats/profile"
-                    )
-            return xf, stats
-
-
-def _next_pow2(n: int) -> int:
-    return 1 << max(0, int(n) - 1).bit_length()
-
-
-@dataclass(frozen=True)
-class CapacityProfile:
-    """Exact capacity needs of an SP2 purification run, measured by
-    `profile_purify`; feed to ``purify_scan(x, n, tau, **prof.kwargs())``.
-    The per-step tuples are the evidence (the densify-then-resparsify
-    hump that a single-step plan misses)."""
-
-    pair_cap: int
-    out_cap: int
-    cap: int
-    row_caps: tuple  # (max B blocks per row, max C blocks per row)
-    per_step_pairs: tuple
-    per_step_out: tuple
-    per_step_kept: tuple
-
-    def kwargs(self) -> dict:
-        """Keyword arguments for `purify_scan` / `sp2_step` / `purify`."""
-        return dict(
-            pair_cap=self.pair_cap, out_cap=self.out_cap, cap=self.cap,
-            row_caps=self.row_caps,
-        )
+            return ids_differ(x.ids, self.plans.expected_ids[0])
 
 
 def profile_purify(
@@ -439,9 +386,9 @@ def profile_purify(
         pc, oc, mbr, mcr = plan_spgemm_ex(xi, xi)
         pc, oc = max(pc, 1), max(oc, 1)
         mbr, mcr = max(mbr, 1), max(mcr, 1)
-        run_pc = _next_pow2(pc)
-        run_oc = _next_pow2(oc + int(xi.nnz))
-        run_rc = (_next_pow2(mbr), _next_pow2(mcr))
+        run_pc = next_pow2(pc)
+        run_oc = next_pow2(oc + int(xi.nnz))
+        run_rc = (next_pow2(mbr), next_pow2(mcr))
         xi, s = sp2_step(
             xi, tau, pair_cap=run_pc, out_cap=run_oc,
             target_trace=target_trace, backend=backend, cap=run_oc,
