@@ -13,13 +13,15 @@ final line):
    registers, spills) and the tensor-core instructions in their SASS
    (HMMA from mma.sync, HGMMA from wgmma, counted by cuobjdump), which
    every instantiation of the row-panel, pair-stream and row-group
-   kernels must have;
+   kernels must have, and the fine kernel's "highest" instantiations at
+   b = 32 (3xTF32 mma.sync, both launch shapes) too, FFMA at b = 16 and
+   64, each shape with no spill and the blocks per SM it is sized for;
 3. each kernel vs its plain PyTorch version at small shapes: the fine
    kernel at b in {16, 32, 64} x the three precision tiers (rectangular
    alpha != 1 operands with empty rows, the zero tail), then its edges at
    each leaf x tier x both layouts x the B row seen whole and capped at
-   8: an A row longer than a shared-memory k-chunk, a C row cut by a
-   chunk boundary, an empty A row with output slots that no product
+   8 (at b = 32 "highest" in both launch shapes): an A row longer than a
+   shared-memory k-chunk, a C row cut by a chunk boundary, an empty A row with output slots that no product
    reaches, an empty C row, slots with one and with many products, a
    SENTINEL tail; the row-panel kernel at b=128 (256 and 384 in phase 21) x the three tiers, bf16 data, the
    SpAMM skip, triu and the aligned accumulator, with union slots that no
@@ -40,7 +42,9 @@ final line):
    fine_unpack, held against an f64 dense oracle and the host plan's
    counters, with the fine kernel's launch count read around it;
 5. the fine kernel vs its plain version at B2's shapes, bitwise
-   determinism of a repeated planned multiply, and CUDA-event times;
+   determinism of a repeated planned multiply, and CUDA-event times; the
+   kernel's profiler device time a launch and its share of the 3xTF32
+   bound, beside the FFMA design's;
 6. one SP2 step through the port's entry (entry.py::entry: the graft
    entry's input, 1024^2, band 48, 16-blocks coarsened to 128) held
    against the f64 product of the same step;
@@ -239,7 +243,16 @@ final line):
     (torch reductions, cumsum, scatter, gather), each within rounding of
     tau^2; call times in turns with the former chain; device time of each
     pass against their byte bound; device operations a call, the former
-    chain's beside them.
+    chain's beside them;
+26. (run after phase 25, in its own process: ``python3 chip_smoke.py
+    --phase26`` runs it alone) the fine kernel at the B3 cells' products:
+    an SP2 X.X step (832^2 grid, X banded with ~34 blocks a row) and a
+    Newton-Schulz Z.T step (416^2, Z with ~137 blocks a row, T dense) at the
+    cells' capacities and row caps, where `launch_shape` must pick the
+    narrow shape (windows of 52 and 7 columns, A rows longer than its
+    k-chunk): one counted launch each against the plain version at
+    TOL["highest"], SENTINEL slots zero, the wide shape bitwise equal, and
+    both shapes' CUDA-event times in turns.
 
 Every add on the card launches the union-add kernel once, so each path's
 exact launch check counts it too (phase 4's chain 1, syrk 1, the ring and
@@ -456,6 +469,47 @@ def tile_kernel_report():
                 raise AssertionError(f"{kernel} {tier}: no tensor-core instruction in its SASS")
 
 
+def fine_kernel_report():
+    """Phase 2: the fine kernel's "highest" product runs on the tensor
+    cores at b = 32 (3xTF32 mma.sync: HMMA in both shapes'
+    `fine_spgemm_kernel<32, 3, threads>`) and FP32 FFMA at b = 16 and 64,
+    where 3xTF32 measured slower (FFMA in `fine_spgemm_kernel<b, 0, 256>`);
+    every shape `launch_shape` picks at "highest" with no spill and the
+    blocks per SM its shared memory is sized for."""
+    import re
+
+    from hierarchical_block_sparse_lib_tpu_torch.kernels import pallas_gemm_fine as pf
+
+    tiers = {0: "highest FFMA", 1: "high", 2: "default", 3: "highest 3xTF32"}
+    seen = set()
+    for fn, (hmma, _, ffma) in sass_counts("gemm_fine").items():
+        m = re.search(r"fine_spgemm_kernelILi(\d+)ELi(\d)ELi(\d+)E", fn)
+        if m is None:
+            continue
+        b, mode, threads = (int(x) for x in m.groups())
+        print(f"[build] SASS fine_spgemm_kernel<{b}, {mode}, {threads}> {tiers[mode]:14s}: "
+              f"{hmma:4d} HMMA {ffma:5d} FFMA")
+        if mode in (0, 3):
+            seen.add((b, threads))
+            if (hmma if mode == 3 else ffma) == 0:
+                raise AssertionError(f"fine_spgemm_kernel<{b}, {mode}, {threads}>: no "
+                                     f"{'HMMA' if mode == 3 else 'FFMA'} in its SASS")
+            if (mode == 3) != (b == 32):
+                raise AssertionError(f"fine_spgemm_kernel<{b}, {mode}, {threads}>: "
+                                     f"\"highest\" runs 3xTF32 at b = 32 and FFMA elsewhere")
+    want = {(b, threads) for b in (16, 32, 64) for threads, _ in pf.shapes(b, "highest")}
+    if seen != want:
+        raise AssertionError(f"fine_spgemm_kernel \"highest\" instantiations: {sorted(seen)}")
+    for b in (16, 32, 64):
+        for threads, ctas in pf.shapes(b, "highest"):
+            cfg = pf.launch_config(b, "highest", 44, (threads, ctas))
+            print(f"[build] fine_spgemm b={b} highest, {threads} threads, sized for {ctas} "
+                  f"per SM: {cfg}")
+            if cfg["local_bytes"] != 0 or cfg["blocks_per_sm"] < ctas:
+                raise AssertionError(f"fine_spgemm b={b} highest: {cfg}, want no spill and "
+                                     f"{ctas} blocks per SM")
+
+
 def small_shapes():
     """Phase 3: kernel vs plain version at small shapes."""
     import torch
@@ -502,9 +556,26 @@ def small_shapes():
             if prec == "highest" and rel > 1e-5:
                 raise AssertionError(f"b={b}: rel err {rel:.3e} vs f64 oracle")
         small_fine_edges(b)
+    from hierarchical_block_sparse_lib_tpu_torch.kernels import pallas_gemm_fine as pf
+
+    small_fine_edges(32, pf.NARROW[(32, "highest")])
 
 
-def small_fine_edges(b):
+@contextlib.contextmanager
+def launch_shape_forced(shape):
+    """Every fine-kernel launch inside runs in `shape` (one of
+    pallas_gemm_fine.shapes), whatever `launch_shape` would pick."""
+    from hierarchical_block_sparse_lib_tpu_torch.kernels import pallas_gemm_fine as pf
+
+    picked = pf.launch_shape
+    pf.launch_shape = lambda *args: shape
+    try:
+        yield
+    finally:
+        pf.launch_shape = picked
+
+
+def small_fine_edges(b, shape=None):
     """Phase 3: the fine kernel's edges against its plain version at leaf
     b, every tier, both layouts, with the B rows seen whole and capped at
     8: a 4 x 80 A whose row 0 holds all 80 entries (more than one
@@ -512,7 +583,10 @@ def small_fine_edges(b):
     slots, so a chunk boundary inside it), row 1 empty (with two output
     slots that no product reaches), row 2 one entry (slots with one
     product), row 3 only entries whose B rows are empty (an empty C row),
-    and a tail of five SENTINEL slots."""
+    and a tail of five SENTINEL slots.  Each tier runs in the shape
+    `launch_shape` picks; with `shape` given, "highest" alone, in that
+    shape (the narrow one at b = 32, which this product's one column window
+    would not pick)."""
     import torch
 
     import hierarchical_block_sparse_lib_tpu_torch as hbsm
@@ -547,20 +621,22 @@ def small_fine_edges(b):
                             torch.arange(oc + 2, out_cap, device=DEVICE)])
     data = {"canonical": (A.data, B.data),
             "flat": (hbsm.fine_pack(A).data, hbsm.fine_pack(B).data)}
-    for prec in ("highest", "high", "default"):
-        kc = pf.launch_config(b, prec, mbr)["kc"]
+    for prec in ("highest",) if shape else ("highest", "high", "default"):
+        picked = shape or pf.launch_shape(b, prec, out_cap, nbr, nbc, B.ids.shape[0])
+        kc = pf.launch_config(b, prec, mbr, picked)["kc"]
         if kc >= 80:
             raise AssertionError(f"b={b} {prec}: k-chunk {kc} holds A's row 0 whole")
         for layout, (ad, bd) in data.items():
             for cap in (mbr, 1):
                 args = (A.ids, ad, B.ids, bd, out_ids, nbr, nbrB, nbc, out_cap, cap, mcr)
                 kw = dict(precision=prec, block_size=b, out_layout=layout, alpha=-0.5)
-                got = pf.fine_spgemm(*args, **kw, tables=tables)
+                with launch_shape_forced(picked):
+                    got = pf.fine_spgemm(*args, **kw, tables=tables)
                 want = pf.fine_spgemm_reference(*args, **kw)
                 torch.cuda.synchronize()
                 # Relative to max|C|: up to 17 products per slot, and the
-                # tensor cores' f32 sums ("high", "default") round otherwise
-                # than FFMA, so a small element of a long sum may differ by
+                # tensor cores' f32 sums round otherwise than the plain
+                # version's, so a small element of a long sum may differ by
                 # more than 1e-5 of itself.
                 err = rel_err(got, want)
                 if not err <= TOL[prec]:
@@ -570,8 +646,8 @@ def small_fine_edges(b):
                     raise AssertionError(f"b={b} {prec} {layout}: a slot with no product")
                 print(f"  edges b={b:2d} {prec:8s} {layout:9s} B row cap "
                       f"{'whole' if cap == mbr else 8:5}: kernel-vs-plain rel err="
-                      f"{err:.3e} (k-chunk {kc}, C row 0 {row0} slots, products per slot "
-                      f"0..{int(per_slot.max())})")
+                      f"{err:.3e} ({picked[0]} threads, k-chunk {kc}, C row 0 {row0} slots, "
+                      f"products per slot 0..{int(per_slot.max())})")
 
 
 def rel_err(got, want) -> float:
@@ -4362,12 +4438,154 @@ def truncate_phase(card) -> dict:
     return rec
 
 
+# Phase 26: the fine kernel at the B3 cells' products, in its own process
+# (`python3 chip_smoke.py --phase26`).
+
+# The two products: grid, A's band half-width and kept share (X: ~34
+# blocks a row; Z: ~137), A's capacity, B (X again, or a dense T), the
+# output capacity and the engines' row caps (PERF.md §5-§6).
+FINE_CELLS = {
+    "sp2 X.X": dict(nb=832, half=24, keep=0.68, cap_a=65_536, dense_b=False, cap_b=65_536,
+                    out_cap=262_144, row_caps=(128, 1_024), alpha=-1.0),
+    "ns Z.T": dict(nb=416, half=68, keep=1.0, cap_a=131_072, dense_b=True, cap_b=262_144,
+                   out_cap=262_144, row_caps=(512, 512), alpha=1.0),
+}
+
+
+def padded_matrix(ids, nb, b, cap, gen):
+    """Block matrix on the card: the sorted `ids` of an nb x nb grid, N(0,1)
+    blocks, SENTINEL ids and zero blocks up to capacity `cap`."""
+    import torch
+
+    from hierarchical_block_sparse_lib_tpu_torch import SENTINEL, BlockMatrix
+
+    n = ids.shape[0]
+    full = torch.full((cap,), SENTINEL, dtype=torch.int32, device=DEVICE)
+    full[:n] = torch.as_tensor(ids, dtype=torch.int32, device=DEVICE)
+    data = torch.zeros((cap, b, b), device=DEVICE)
+    data[:n] = torch.randn((n, b, b), generator=gen, device=DEVICE)
+    return BlockMatrix(ids=full, data=data, nnz=torch.tensor(n, dtype=torch.int32, device=DEVICE),
+                       n_rows=nb * b, n_cols=nb * b, block_size=b)
+
+
+def plain_by_rows(A, B, out_ids, nb, row_caps, alpha, max_pairs=1 << 20):
+    """`fine_spgemm_reference` of A B over groups of C rows (so its gathered
+    pairs stay within a few GB): (max |C| of the valid slots, the C blocks
+    ``[n_valid, b, b]``)."""
+    import torch
+
+    from hierarchical_block_sparse_lib_tpu_torch import SENTINEL
+    from hierarchical_block_sparse_lib_tpu_torch.kernels import pallas_gemm_fine as pf
+
+    n_valid = int((out_ids != SENTINEL).sum())
+    n_a = int((A.ids != SENTINEL).sum())
+    pairs = n_a * min(row_caps[0], nb)  # a bound: A's entries times the row cap
+    step = max(1, nb * max_pairs // max(pairs, 1))
+    parts = []
+    for r0 in range(0, nb, step):
+        keys = torch.tensor([r0 * nb, min(r0 + step, nb) * nb], dtype=torch.int32, device=DEVICE)
+        a0, a1 = torch.searchsorted(A.ids, keys).tolist()
+        o0, o1 = torch.searchsorted(out_ids[:n_valid], keys).tolist()
+        if o1 == o0:
+            continue
+        parts.append(pf.fine_spgemm_reference(
+            A.ids[a0:a1], A.data[a0:a1], B.ids, B.data, out_ids[o0:o1], nb, nb, nb, o1 - o0,
+            row_caps[0], row_caps[1], precision="highest", block_size=A.block_size,
+            alpha=alpha))
+    want = torch.cat(parts)
+    if want.shape[0] != n_valid:
+        raise AssertionError(f"plain version covers {want.shape[0]} of {n_valid} slots")
+    return want
+
+
+def fine_cells_path(card) -> dict:
+    """Phase 26's work, in this process: an SP2 X.X step and a Newton-Schulz
+    Z.T step at the B3 cells' sizes and capacities (832^2 and 416^2 grids
+    of 32 x 32 blocks, X banded with ~34 blocks a row, Z with ~137 and T
+    dense, the engines' output capacity and row caps), where `launch_shape`
+    must pick the narrow shape: one launch each (counted), held against the
+    plain version at TOL["highest"] of the largest element, SENTINEL slots
+    zero, the wide shape bitwise equal to it, and both shapes' times."""
+    import torch
+
+    import hierarchical_block_sparse_lib_tpu_torch as hbsm
+    from hierarchical_block_sparse_lib_tpu_torch.kernels import pallas_gemm_fine as pf
+    from hierarchical_block_sparse_lib_tpu_torch.ops.spgemm import plan_spgemm_ex
+
+    b, narrow = 32, pf.NARROW[(32, "highest")]
+    wide = pf.shapes(b, "highest")[0]
+    numbers, launches = {}, 0
+    for name, c in FINE_CELLS.items():
+        nb = c["nb"]
+        gen = torch.Generator(device=DEVICE).manual_seed(26)
+        rng = np.random.default_rng(26)
+        i, j = np.divmod(np.arange(nb * nb), nb)
+        band = (np.abs(i - j) <= c["half"]) & ((rng.random(nb * nb) < c["keep"]) | (i == j))
+        A = padded_matrix(np.flatnonzero(band), nb, b, c["cap_a"], gen)
+        B = padded_matrix(np.arange(nb * nb), nb, b, c["cap_b"], gen) if c["dense_b"] else A
+        pc, oc, _, _ = plan_spgemm_ex(A, B)
+        out_cap, row_caps = c["out_cap"], c["row_caps"]
+        plan = hbsm.make_fine_plan(A, B, pc, out_cap, row_caps)
+        shape = pf.launch_shape(b, "highest", out_cap, nb, nb, B.ids.shape[0])
+        if shape != narrow:
+            raise AssertionError(f"{name}: launch_shape picks {shape}, not {narrow}")
+        kc = pf.launch_config(b, "highest", row_caps[0], shape)["kc"]
+        args = (A.ids, A.data, B.ids, B.data, plan.out_ids, nb, nb, nb, out_cap, *row_caps)
+        kw = dict(precision="highest", block_size=b, alpha=c["alpha"], tables=plan.tables)
+        torch.cuda.synchronize()
+        reset_counts()
+        got = pf.fine_spgemm(*args, **kw)
+        torch.cuda.synchronize()
+        launched({"fine_spgemm": 1}, f"{name} at the cell's size")
+        launches += 1
+        with launch_shape_forced(wide):
+            same = torch.equal(pf.fine_spgemm(*args, **kw), got)
+        if not same:
+            raise AssertionError(f"{name}: the wide shape differs from the narrow one")
+        want = plain_by_rows(A, B, plan.out_ids, nb, row_caps, c["alpha"])
+        err = rel_err(got[:oc], want)
+        if not err <= TOL["highest"]:
+            raise AssertionError(f"{name}: kernel vs plain rel err {err:.3e} > {TOL['highest']}")
+        if torch.count_nonzero(got[oc:]) != 0:
+            raise AssertionError(f"{name}: SENTINEL slots not zero")
+        del want
+        a_rows = (plan.tables[0][1:] - plan.tables[0][:-1]).double()
+        _, _, prec, at, bt = pf._operands(A.data, B.data, b, "highest", c["alpha"])
+        times = alternate(
+            lambda: pf.launch(plan.out_ids, plan.tables, at, bt, out_cap, nb, nb, row_caps[0],
+                              prec),
+            lambda: pf.launch(plan.out_ids, plan.tables, at, bt, out_cap, nb, nb, row_caps[0],
+                              prec, shape=wide))
+        window = min(pf.col_window(nb, B.ids.shape[0], b), pf.SPAN)
+        print(f"[phase26] {name}: {int(A.nnz)} x {int(B.nnz)} blocks, {pc} products into {oc} "
+              f"of {out_cap} slots, A rows {float(a_rows.mean()):.1f} on average (k-chunk {kc}), "
+              f"windows of {window} columns: one launch in the narrow shape {narrow}; "
+              f"kernel-vs-plain rel err {err:.3e} (limit {TOL['highest']}); the wide shape "
+              f"{wide} bitwise equal; {card}: narrow {times[2][0]:.3f} / {times[2][1]:.3f} ms, "
+              f"wide {times[2][2]:.3f} / {times[2][3]:.3f} ms (in turns wide, narrow, narrow, "
+              f"wide)")
+        numbers[name] = dict(rel_err=err, pairs=pc, slots=oc, kc=kc, window=window,
+                             narrow_ms=times[0], wide_ms=times[1])
+        del A, B, plan, got, at, bt
+        torch.cuda.empty_cache()
+    return {"launches": {"fine_spgemm": launches}, "numbers": numbers}
+
+
+def fine_cells_phase(card) -> dict:
+    """Phase 26 in its own process (`python3 chip_smoke.py --phase26`).
+    Returns its record (launches and numbers)."""
+    t0 = time.perf_counter()
+    rec = phase_process("phase26", 600)
+    print(f"[phase26] phase wall {time.perf_counter() - t0:.1f} s (its own process)")
+    return rec
+
+
 def phase_main(phase: str) -> int:
     """`python3 chip_smoke.py --phase21`, `--phase22`, `--phase23`,
-    `--phase24` or `--phase25`: that phase alone (phase 21's, 23's, 24's
-    and 25's kernels built if they are not), its last line one JSON object
-    (phase 21's, 23's, 24's and 25's launches and numbers, phase 22's wall
-    time)."""
+    `--phase24`, `--phase25` or `--phase26`: that phase alone (phase 21's
+    and 23's to 26's kernels built if they are not), its last line one JSON
+    object (phase 21's and 23's to 26's launches and numbers, phase 22's
+    wall time)."""
     import torch
 
     if not torch.cuda.is_available():
@@ -4383,11 +4601,13 @@ def phase_main(phase: str) -> int:
         _build.load_all(["fine_epilogue"])
     if phase == "--phase25":
         _build.load_all(["truncate"])
+    if phase == "--phase26":
+        _build.load_all(["gemm_fine"])
     card = card_line()
     print(card)
     paths = {"--phase21": wide_leaf_path, "--phase22": lambda _: members_path(),
              "--phase23": union_add_path, "--phase24": fine_epilogue_path,
-             "--phase25": truncate_path}
+             "--phase25": truncate_path, "--phase26": fine_cells_path}
     print(json.dumps(paths[phase](card)))
     return 0
 
@@ -4425,12 +4645,17 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  {line.strip()}")
-    from hierarchical_block_sparse_lib_tpu_torch.kernels.pallas_gemm_fine import launch_config
+    from hierarchical_block_sparse_lib_tpu_torch.kernels.pallas_gemm_fine import (
+        launch_config,
+        shapes,
+    )
 
     for b in (16, 32, 64):  # at B2's B row cap, 44
         for prec in ("highest", "high", "default"):
-            print(f"[build] fine_spgemm b={b} {prec}: {launch_config(b, prec, 44)}")
+            for shape in shapes(b, prec):
+                print(f"[build] fine_spgemm b={b} {prec} {shape}: {launch_config(b, prec, 44, shape)}")
     tile_kernel_report()
+    fine_kernel_report()
 
     # Phase 3: kernels vs plain versions at small shapes.
     print("[small] kernel vs plain version")
@@ -4507,6 +4732,22 @@ def main() -> int:
           f"-> {flops / fine_plain_ms / 1e6:.1f} GFLOP/s")
     fine_bound = bound(flops, 2 * Af.data.numel() * 4 + oc * b * b * 4)
     fine_ns_per_pair = fine_ms / pc * 1e6
+    from hierarchical_block_sparse_lib_tpu_torch.kernels import pallas_gemm_fine as pf
+
+    _, _, prec, at, bt = pf._operands(Af.data, Af.data, b, "highest", 0.5)
+    fdev = device_profile("fine_spgemm at B2 (highest)",
+                          lambda: pf.launch(plan.out_ids, plan.tables, at, bt, oc, Af.nb_rows,
+                                            Af.nb_cols, mbr, prec), 10, card, unit="launch")
+    fine_tb = tile_bounds(flops, 2 * Af.data.numel() * 4 + oc * b * b * 4,
+                          per_call_us(fdev, 10, "fine_spgemm_kernel"))
+    shape = pf.launch_shape(b, "highest", oc, Af.nb_rows, Af.nb_cols, Af.ids.shape[0])
+    print(f"[B2] fine_spgemm_kernel (3xTF32, {shape[0]} threads, {shape[1]} an SM) device "
+          f"{'not measured' if fine_tb['device_ms'] is None else '%.3f ms' % fine_tb['device_ms']}"
+          f" a launch (the FFMA design before it: 0.846-0.893 ms); 3xTF32 bound "
+          f"{fine_tb['bound_route_ms']:.3f} ms ({fine_tb['route_bound_by']}): "
+          f"{pct(fine_tb['share_route'])}; FP32 bound {fine_tb['bound_fp32_ms']:.3f} ms: "
+          f"{pct(fine_tb['share_fp32'])}")
+    del at, bt
     b2 = (A, Af, plan, pc, oc, (mbr, mcr))  # phase 15's kpack and spmm (0.1 GB)
     del Af, plan, A
     torch.cuda.empty_cache()
@@ -4606,12 +4847,15 @@ def main() -> int:
         library_ms=None, device_ms=t["passes_us"] / 1e3 if t["passes_us"] else None,
     )
 
+    # Phase 26: the fine kernel at the B3 cells' products, in a subprocess.
+    p26 = fine_cells_phase(card)
+
     entries["fine_spgemm"] = dict(
         max_abs_err=fine_err, ms=fine_ms, plain_ms=fine_plain_ms,
         bound=fine_bound, library_ms=None,
     )
     launches = dict(
-        b3_launches, fine_spgemm=fine_launches, groups_spgemm=b1_launches + b4_groups,
+        b3_launches, fine_spgemm=fine_launches + p26["launches"]["fine_spgemm"], groups_spgemm=b1_launches + b4_groups,
         gather_gemm_accumulate_stream=b2t_launches + purify_launches,
         gather_gemm_accumulate=v1_launches, union_add=b2_launches["union_add"],
         fine_epilogue=0, truncate=p25["launches"]["truncate"], **micro_launches,
@@ -4634,6 +4878,7 @@ def main() -> int:
           f"B3 + {b4_rows} on B4 (phase 15) + {p16['rows_spgemm']} with triu (phase 16: syrk "
           f"and the symmetric B3 path); norms_and_keep: {b3_launches['norms_and_keep']} on B3 "
           f"+ {p16['norms_and_keep']} (phase 16); fine_spgemm: {fine_launches} on B2 + "
+          f"{p26['launches']['fine_spgemm']} at the B3 cells' products (phase 26) + "
           f"{p16['fine_spgemm']} through the class (phase 16); fine_epilogue: "
           f"{p16['fine_epilogue']} through the class (phase 16) and the acceptance's fine-branch "
           f"products (phase 19); union_add: "
@@ -4674,5 +4919,5 @@ if __name__ == "__main__":
     phase = sys.argv[1:]
     sys.exit(phase_main(phase[0])
              if phase in (["--phase21"], ["--phase22"], ["--phase23"], ["--phase24"],
-                          ["--phase25"])
+                          ["--phase25"], ["--phase26"])
              else main())

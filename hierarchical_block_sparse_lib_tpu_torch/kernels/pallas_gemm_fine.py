@@ -37,6 +37,11 @@ _G8 = 8  # row-cap bucket, as the reference's
 # (scripts/time_fine_kernel.py measures both).
 CHUNK_SLOTS = 128
 CTAS_PER_SM = {(16, "high"): 2}
+# The narrow launch shape (threads per block, resident blocks per SM) and
+# the output slots a chunk holds on average where the wide one is as fast
+# (`launch_shape`; measured on B2's, SP2's and Newton-Schulz's products).
+NARROW = {(32, "highest"): (128, 3)}
+WIDE_MIN_SLOTS = 40
 # B payload bytes per column window of the kernel's schedule (L2: 50 MB),
 # and the widest window: the kernel marks each A entry's B row as a bitmap
 # of the columns a chunk spans (kSpan in gemm_fine.cu).
@@ -85,6 +90,43 @@ def col_window(nbc: int, cap_b: int, b: int) -> int:
     read stay in L2 while every C row passes over it."""
     n_win = max(1, -(-cap_b * b * b * 4 // B_PANEL_BYTES))
     return -(-nbc // n_win)
+
+
+def shapes(b: int, precision: str) -> list:
+    """The launch shapes of leaf b and tier, as (threads per block,
+    resident blocks per SM the shared memory is sized for): the wide one
+    first (256 threads, one block an SM or CTAS_PER_SM's), then `NARROW`'s
+    where the tier has one."""
+    wide = (256, CTAS_PER_SM.get((b, precision), 1))
+    return [wide] + ([NARROW[(b, precision)]] if (b, precision) in NARROW else [])
+
+
+def launch_shape(b: int, precision: str, out_cap: int, nbr: int, nbc: int,
+                 cap_b: int) -> tuple:
+    """The shape (one of `shapes`) of a launch, from the output slots a
+    chunk holds on average: at most its column window's width
+    (`col_window`), and at most `out_cap` spread over the C rows and their
+    windows.  A wide block's eight warps share its chunk's slots and wait
+    together through its serial phases (staging A's row, the bitmaps);
+    with fewer than `WIDE_MIN_SLOTS` slots a chunk, `NARROW` runs three
+    smaller blocks an SM, one block's serial phases under the others'
+    products, though its k-chunk is a quarter the size (each further
+    k-chunk a round trip of the slots' sums through the output)."""
+    wide, *narrow = shapes(b, precision)
+    window = min(col_window(nbc, cap_b, b), SPAN)
+    slots = min(window, out_cap / (nbr * -(-nbc // window)))
+    if narrow and slots < WIDE_MIN_SLOTS:
+        return narrow[0]
+    return wide
+
+
+def product_route(b: int, precision: str) -> str:
+    """The peak (utils/profiling.PEAK_OPS) that bounds the kernel's
+    products: "highest" 3xTF32 at b = 32 and FP32 FFMA at b = 16 and 64,
+    "high" three bf16 passes, "default" one."""
+    if precision == "highest":
+        return "tf32x3" if b == 32 else "fp32"
+    return "bf16x3" if precision == "high" else "bf16"
 
 
 def slot_chunks(out_ids, c_row_start, nbc: int, chunk_slots: int = CHUNK_SLOTS,
@@ -180,8 +222,8 @@ def _output(ct: torch.Tensor, b: int, out_layout: str) -> torch.Tensor:
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # The C entries of gemm_fine.cu and their arguments.
 SIGNATURES = {
-    "hbsm_fine_spgemm": [_P, _I] + [_P] * 9 + [_I] * 5 + [_P],
-    "hbsm_fine_spgemm_config": [_I] * 4 + [_P],
+    "hbsm_fine_spgemm": [_P, _I] + [_P] * 9 + [_I] * 6 + [_P],
+    "hbsm_fine_spgemm_config": [_I] * 5 + [_P],
 }
 
 
@@ -260,16 +302,15 @@ fine_spgemm.launches = 0
 
 
 def launch(out_ids, tables, at, bt, out_cap: int, nbr: int, nbc: int,
-           b_row_max: int, precision: str, ctas_per_sm: int | None = None) -> torch.Tensor:
+           b_row_max: int, precision: str, shape: tuple | None = None) -> torch.Tensor:
     """The kernel alone, on CUDA operands made by `_operands` (`at`, `bt`,
     with `precision` as it resolved) and the tables of `fine_tables`: the
-    C^T blocks ``[out_cap, b, b]`` f32.  `ctas_per_sm` sizes the launch's
-    shared memory (default `ctas_per_sm(b, precision)`).  Counts in
+    C^T blocks ``[out_cap, b, b]`` f32.  `shape` is one of `shapes(b,
+    precision)`, by default `launch_shape`'s.  Counts in
     `fine_spgemm.launches`."""
-    del nbr
     a_row_start, a_col, b_row_start, b_col, _, ccol, chunks = tables
     b = at.shape[-1]
-    ctas = ctas_per_sm or CTAS_PER_SM.get((b, precision), 1)
+    threads, ctas = shape or launch_shape(b, precision, out_cap, nbr, nbc, bt.shape[0])
     if at.data_ptr() % 16 or bt.data_ptr() % 16:
         raise ValueError("fine_spgemm needs 16-byte aligned payloads")
     device = at.device
@@ -280,22 +321,24 @@ def launch(out_ids, tables, at, bt, out_cap: int, nbr: int, nbc: int,
         chunks.data_ptr(), chunks.shape[1], out_ids.data_ptr(), ccol.data_ptr(),
         a_row_start.data_ptr(), a_col.data_ptr(), b_row_start.data_ptr(),
         b_col.data_ptr(), at.data_ptr(), bt.data_ptr(), out.data_ptr(), nbc,
-        _bucket(max(b_row_max, 1)), b, _build.PRECISION_CODES[precision], ctas,
+        _bucket(max(b_row_max, 1)), b, _build.PRECISION_CODES[precision], ctas, threads,
     )
     fine_spgemm.launches += 1
     return out
 
 
-def launch_config(b: int, precision: str, b_row_max: int,
-                  ctas_per_sm: int | None = None) -> dict:
-    """What `launch` would run, read from the library and the card: the A
-    entries staged per k-chunk, dynamic shared bytes, resident blocks per
-    SM, registers and local (spill) bytes per thread, threads per block."""
+def launch_config(b: int, precision: str, b_row_max: int, shape: tuple) -> dict:
+    """What `launch` runs in `shape` (one of `shapes(b, precision)`, as
+    `launch_shape` picks it for a call), read from the library and the
+    card: the A entries staged per k-chunk, dynamic shared bytes, resident
+    blocks per SM, registers and local (spill) bytes per thread, threads
+    per block."""
+    threads, ctas = shape
     lib = _build.bind("gemm_fine", SIGNATURES)
     info = (ctypes.c_int * 6)()
     err = lib.hbsm_fine_spgemm_config(
-        b, _build.PRECISION_CODES[precision], _bucket(max(b_row_max, 1)),
-        ctas_per_sm or CTAS_PER_SM.get((b, precision), 1), ctypes.cast(info, ctypes.c_void_p),
+        b, _build.PRECISION_CODES[precision], _bucket(max(b_row_max, 1)), ctas, threads,
+        ctypes.cast(info, ctypes.c_void_p),
     )
     _build.check(lib, err, "fine_spgemm config")
     keys = ("kc", "smem_bytes", "blocks_per_sm", "registers", "local_bytes", "threads")

@@ -6,13 +6,15 @@ For each leaf b in {16, 32, 64}: ``random_block_matrix(16384, b, 0.05,
 seed=2)`` squared, alpha 0.5, through `make_fine_plan`'s tables and
 `_operands`, one launch per call at "highest", "high" and "default":
 CUDA-event median of 7 after 2 warm-ups, ns per leaf product per SM (132
-SMs), the bound (FP32 operations or bytes at 3.35 TB/s, whichever is
-larger; for "high"/"default" also the bf16 tensor-core rate), and the
+SMs), the bound (the products at `product_route`'s peak: 3xTF32 at b = 32
+"highest", FP32 at b = 16 and 64, three bf16 passes at "high", one at
+"default"; or bytes at 3.35 TB/s, whichever is larger), and the
 launch's k-chunk, shared memory, occupancy, registers and spills
 (`launch_config`).  Then the launch sizes (`sweep_launch`): the resident
-blocks per SM the shared memory is sized for against the column windows
-of the chunk table (`slot_chunks`), and at b = 32 "highest" the chunk of
-C-row slots per thread block.  Run on a CUDA card:
+blocks per SM the shared memory is sized for (and at b = 32 "highest"
+the narrow shape) against the column windows of the chunk table
+(`slot_chunks`), and at b = 32 "highest" the chunk of C-row slots per
+thread block.  Run on a CUDA card:
 
     python -m hierarchical_block_sparse_lib_tpu_torch.scripts.time_fine_kernel
 
@@ -41,7 +43,7 @@ SMS = 132  # streaming multiprocessors of an H100 SXM
 TIERS = ("highest", "high", "default")
 # Launch sizes tried: resident blocks per SM, chunk sizes, and column
 # windows (as a count of windows over the output columns).
-SWEEP = dict(ctas_per_sm=(1, 2), chunk_slots=(64, 256), windows=(1, 2, 4, 8))
+SWEEP = dict(ctas_per_sm=(1, 2), chunk_slots=(64, 256), windows=(1, 2, 4, 5, 8, 16))
 
 
 def leaf_case(device, n, leaf, density, seed):
@@ -54,33 +56,35 @@ def leaf_case(device, n, leaf, density, seed):
 
 
 def sweep_launch(plan, at, bt, oc, nbr, nbc, mbr, prec, leaf, tier) -> dict:
-    """The kernel alone sized for 1 and 2 resident blocks per SM, at each
-    column window of the chunk table and, at b = 32 "highest", each chunk
-    size: {("sweep", leaf, tier, ctas_per_sm, chunk_slots, windows): ms,
-    None where the shared memory does not fit}.  A variant with the
-    default's k-chunk must equal the default launch bitwise (the same
-    serial sums per slot); one with another k-chunk, within 1e-5 (at
-    "highest" a slot's two K-halves meet the carried sum in another
-    order)."""
+    """The kernel alone in blocks of 256 threads sized for 1 and 2 resident
+    blocks per SM and, at b = 32 "highest", in `pf.NARROW`'s shape, at each
+    column window of the chunk table; at b = 32 "highest" also each chunk
+    size in `launch_shape`'s shape: {("sweep", leaf, tier, "<blocks>x<threads>"
+    or "default", chunk_slots, windows): ms, None where the shared memory does
+    not fit}.  A variant with the default's k-chunk must equal the default
+    launch bitwise (the same serial sums per slot); one with another
+    k-chunk, within 1e-5 (at "highest" FFMA a slot's two K-halves meet the
+    carried sum in another order)."""
+    picked = pf.launch_shape(leaf, prec, oc, nbr, nbc, bt.shape[0])
     want = pf.launch(plan.out_ids, plan.tables, at, bt, oc, nbr, nbc, mbr, prec)
-    kc0 = pf.launch_config(leaf, prec, mbr)["kc"]
-    variants = [(ctas, pf.CHUNK_SLOTS, w) for ctas in SWEEP["ctas_per_sm"]
-                for w in SWEEP["windows"]]
+    kc0 = pf.launch_config(leaf, prec, mbr, picked)["kc"]
+    shapes = [(256, ctas) for ctas in SWEEP["ctas_per_sm"]] + pf.shapes(leaf, prec)[1:]
+    variants = [(shape, pf.CHUNK_SLOTS, w) for shape in shapes for w in SWEEP["windows"]]
     if (leaf, tier) == (32, "highest"):
         variants += [(None, cs, 4) for cs in SWEEP["chunk_slots"]]
     res = {}
-    for ctas, cs, n_win in variants:
+    for shape, cs, n_win in variants:
         chunks = pf.slot_chunks(plan.out_ids, plan.tables[4], nbc, cs, -(-nbc // n_win))
         tables = plan.tables[:6] + (chunks,)
 
-        def run(tables=tables, ctas=ctas):
-            return pf.launch(plan.out_ids, tables, at, bt, oc, nbr, nbc, mbr, prec,
-                             ctas_per_sm=ctas)
-        key = ("sweep", leaf, tier, ctas or "default", cs, n_win)
+        def run(tables=tables, shape=shape):
+            return pf.launch(plan.out_ids, tables, at, bt, oc, nbr, nbc, mbr, prec, shape=shape)
+        label = "default" if shape is None else f"{shape[1]}x{shape[0]}"
+        key = ("sweep", leaf, tier, label, cs, n_win)
         try:
-            cfg = pf.launch_config(leaf, prec, mbr, ctas)
+            cfg = pf.launch_config(leaf, prec, mbr, shape or picked)
         except RuntimeError as e:  # the ring alone outgrows the budget
-            log(f"  sweep {tier}: {ctas} per SM: {e}")
+            log(f"  sweep {tier}: {label} per SM: {e}")
             res[key] = None
             continue
         got = run()
@@ -89,8 +93,9 @@ def sweep_launch(plan, at, bt, oc, nbr, nbc, mbr, prec, leaf, tier) -> dict:
             raise AssertionError(f"sweep {key} differs from the default launch")
         ms, _ = card_time_ms(run, "cuda")
         res[key] = ms
-        log(f"  sweep {tier}: {cs} slots per block, {n_win} column windows, sized for "
-            f"{ctas or 'the default'} per SM (k-chunk {cfg['kc']}, {cfg['smem_bytes']} B, "
+        log(f"  sweep {tier}: {cs} slots per block, {n_win} column windows, "
+            f"{cfg['threads']} threads sized for {(shape or picked)[1]} per SM (k-chunk "
+            f"{cfg['kc']}, {cfg['smem_bytes']} B, "
             f"{cfg['blocks_per_sm']} resident, {cfg['registers']} registers): "
             f"{fmt_ms(ms)}, {'bitwise equal' if same else 'within 1e-5'}")
     return res
@@ -111,15 +116,13 @@ def main(device="cuda", n: int = 16384, density: float = 0.05, seed: int = 2,
             _, _, prec, at, bt = pf._operands(Af.data, Af.data, leaf, tier, 0.5)
             nbytes = at.numel() * at.element_size() + bt.numel() * bt.element_size() \
                 + oc * leaf * leaf * 4
-            bnd = bound(2 * leaf**3 * pc, nbytes,
-                        "fp32" if tier == "highest" else "bf16")
-            if tier == "high":  # three bf16 passes
-                bnd = bound(3 * 2 * leaf**3 * pc, nbytes, "bf16")
+            bnd = bound(2 * leaf**3 * pc, nbytes, pf.product_route(leaf, tier))
             if on_card(device):
                 def run(tier=tier, at=at, bt=bt, prec=prec):
                     return pf.launch(plan.out_ids, plan.tables, at, bt, oc, nbr, nbc, mbr,
                                      prec)
-                cfg = pf.launch_config(leaf, prec, mbr) if hasattr(pf, "launch_config") else {}
+                cfg = pf.launch_config(leaf, prec, mbr,
+                                       pf.launch_shape(leaf, prec, oc, nbr, nbc, bt.shape[0]))
             else:
                 def run(tier=tier):
                     return pf.fine_spgemm(Af.ids, Af.data, Af.ids, Af.data, plan.out_ids, nbr,

@@ -197,3 +197,35 @@ def test_slot_chunks_read_nothing_on_the_host(monkeypatch):
     starts = list(range(0, ids.shape[0], 4))
     assert tail[0].tolist() == starts + [0] * (n - len(starts))
     np.testing.assert_array_equal(got.numpy(), numpy_chunks(out_ids, nbr, nbc, 4, 2))
+
+# (out_cap, C rows, C columns, B's capacity, the faster shape on the card,
+# PERF.md §6): B2's product (16384^2, 5%, leaf 32) in 4 column windows, in 8
+# (B's capacity 32 768, the narrow shape 22% slower there) and in 32 (15%
+# faster); the b3_sp2.planned X.X step in its 16 windows and in 4; the
+# b3_invsqrt.planned engine's Z.S, (Z.S).Z and Z.T, and Z.T in 4 windows.
+LAUNCH_SHAPES = {
+    "b2": (189_830, 512, 512, 13_107, "wide"),
+    "b2 in 8 windows": (189_830, 512, 512, 32_768, "wide"),
+    "b2 in 32 windows": (189_830, 512, 512, 131_072, "narrow"),
+    "sp2 X.X": (262_144, 832, 832, 65_536, "narrow"),
+    "sp2 X.X in 4 windows": (262_144, 832, 832, 16_384, "wide"),
+    "ns Z.S": (262_144, 416, 416, 42_470, "narrow"),
+    "ns (Z.S).Z": (262_144, 416, 416, 131_072, "narrow"),
+    "ns Z.T": (262_144, 416, 416, 262_144, "narrow"),
+    "ns Z.T in 4 windows": (262_144, 416, 416, 16_384, "wide"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(LAUNCH_SHAPES))
+def test_launch_shape_picks_the_faster_shape(name):
+    *call, want = LAUNCH_SHAPES[name]
+    wide, narrow = pf.shapes(32, "highest")
+    assert pf.launch_shape(32, "highest", *call) == (wide if want == "wide" else narrow)
+
+
+@pytest.mark.parametrize("b,precision", [(16, "highest"), (64, "highest"), (32, "high"),
+                                         (32, "default")])
+def test_launch_shape_is_wide_where_no_narrow_shape_is_built(b, precision):
+    assert pf.shapes(b, precision) == [(256, pf.CTAS_PER_SM.get((b, precision), 1))]
+    for *call, _ in LAUNCH_SHAPES.values():
+        assert pf.launch_shape(b, precision, *call) == pf.shapes(b, precision)[0]
