@@ -11,7 +11,12 @@ the peak stays about A + C + one slab.  B traffic is unchanged (each
 pair's B block is read in exactly one slab); A is read once per slab.
 
 The plan is host numpy, field for field the JAX package's.  The device
-part is one block gather per slab, its `spgemm` and one `index_copy_`.
+part is one block gather per slab, its `spgemm` and one `index_copy_`,
+all under the span ``hbsm.colslab``; `spgemm_colslab.slabs` counts the
+slab products run.  A call makes no host sync: the plan's arrays go to
+the device by non-blocking copies (a blocking copy from pageable memory
+waits for the stream, so the device would idle between slabs while the
+host enqueues the next), its counts by device fills.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from hierarchical_block_sparse_lib_tpu_torch.core.block_matrix import (
 )
 from hierarchical_block_sparse_lib_tpu_torch.ops.spgemm import MultiplyInfo, spgemm
 from hierarchical_block_sparse_lib_tpu_torch.runtime import native
+from hierarchical_block_sparse_lib_tpu_torch.utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -139,12 +145,12 @@ def _out_ids_numpy(a_ids_v, b_local_sorted, a_nbc, nbc_s):
 
 def _colslab(b: BlockMatrix, sl: SlabSpec) -> BlockMatrix:
     """The slab as a BlockMatrix: host-planned ids, and one gather of its
-    blocks on B's device."""
+    blocks on B's device (no host sync)."""
     dev = b.device
     return BlockMatrix(
-        ids=torch.from_numpy(sl.local_ids).to(dev),
-        data=b.data[torch.from_numpy(sl.gather_idx).to(dev).long()],
-        nnz=torch.tensor(sl.cap, dtype=torch.int32, device=dev),
+        ids=torch.from_numpy(sl.local_ids).to(dev, non_blocking=True),
+        data=b.data[torch.from_numpy(sl.gather_idx).to(dev, non_blocking=True).long()],
+        nnz=torch.full((), sl.cap, dtype=torch.int32, device=dev),
         n_rows=b.n_rows,
         n_cols=(sl.j1 - sl.j0) * b.block_size,
         block_size=b.block_size,
@@ -164,64 +170,70 @@ def spgemm_colslab(
     with counters summed over slabs: the pair count equals the unsliced
     multiply's exactly.  Pass `plan` (from `plan_colslab`) instead of
     `n_slabs` to reuse it across fixed-structure iterations."""
-    if a.n_cols != b.n_rows or a.block_size != b.block_size:
-        raise ValueError("dimension/block mismatch")
-    if plan is None:
-        if n_slabs is None:
-            raise ValueError("need n_slabs or plan")
-        plan = plan_colslab(a, b, n_slabs)
-    bs = a.block_size
-    dev = a.device
-    zero_i = torch.zeros((), dtype=torch.int32, device=dev)
-    false = torch.zeros((), dtype=torch.bool, device=dev)
-    if plan.n_out == 0:
-        from hierarchical_block_sparse_lib_tpu_torch.core import assembly
+    with span("hbsm.colslab"):
+        if a.n_cols != b.n_rows or a.block_size != b.block_size:
+            raise ValueError("dimension/block mismatch")
+        if plan is None:
+            if n_slabs is None:
+                raise ValueError("need n_slabs or plan")
+            plan = plan_colslab(a, b, n_slabs)
+        bs = a.block_size
+        dev = a.device
+        zero_i = torch.zeros((), dtype=torch.int32, device=dev)
+        false = torch.zeros((), dtype=torch.bool, device=dev)
+        if plan.n_out == 0:
+            from hierarchical_block_sparse_lib_tpu_torch.core import assembly
 
-        c = assembly.empty(a.n_rows, b.n_cols, bs, 1, a.dtype, device=dev)
-        return c, MultiplyInfo(
-            n_block_pairs=zero_i,
-            n_out_blocks=zero_i,
-            pair_overflow=false,
-            out_overflow=false,
-            row_overflow=false,
+            c = assembly.empty(a.n_rows, b.n_cols, bs, 1, a.dtype, device=dev)
+            return c, MultiplyInfo(
+                n_block_pairs=zero_i,
+                n_out_blocks=zero_i,
+                pair_overflow=false,
+                out_overflow=false,
+                row_overflow=false,
+                plan_mismatch=false,
+                n_leaf_multiplies=torch.full((), -1, dtype=torch.int32, device=dev),
+            )
+        # The slabs' positions partition [0, n_out): every slot is written.
+        out = torch.empty((plan.n_out, bs, bs), dtype=a.dtype, device=dev)
+        total_pairs = zero_i
+        ovf = false
+        row_ovf = false
+        for sl in plan.slabs:
+            c_s, info = spgemm(
+                a,
+                _colslab(b, sl),
+                pair_cap=sl.pair_cap,
+                out_cap=sl.out_cap,
+                alpha=alpha,
+                precision=precision,
+                backend=backend,
+                row_caps=sl.row_caps,
+            )
+            pos = torch.from_numpy(sl.pos).to(dev, non_blocking=True).long()
+            out.index_copy_(0, pos, c_s.data)
+            spgemm_colslab.slabs += 1
+            total_pairs = total_pairs + info.n_block_pairs
+            ovf = ovf | info.pair_overflow | info.out_overflow
+            row_ovf = row_ovf | info.row_overflow
+        c = BlockMatrix(
+            ids=torch.from_numpy(plan.out_ids).to(dev, non_blocking=True),
+            data=out,
+            nnz=torch.full((), plan.n_out, dtype=torch.int32, device=dev),
+            n_rows=a.n_rows,
+            n_cols=b.n_cols,
+            block_size=bs,
+        )
+        info = MultiplyInfo(
+            n_block_pairs=total_pairs,
+            n_out_blocks=torch.full((), plan.n_out, dtype=torch.int32, device=dev),
+            pair_overflow=ovf,
+            out_overflow=ovf,
+            row_overflow=row_ovf,
             plan_mismatch=false,
             n_leaf_multiplies=torch.full((), -1, dtype=torch.int32, device=dev),
         )
-    # The slabs' positions partition [0, n_out): every slot is written.
-    out = torch.empty((plan.n_out, bs, bs), dtype=a.dtype, device=dev)
-    total_pairs = zero_i
-    ovf = false
-    row_ovf = false
-    for sl in plan.slabs:
-        c_s, info = spgemm(
-            a,
-            _colslab(b, sl),
-            pair_cap=sl.pair_cap,
-            out_cap=sl.out_cap,
-            alpha=alpha,
-            precision=precision,
-            backend=backend,
-            row_caps=sl.row_caps,
-        )
-        out.index_copy_(0, torch.from_numpy(sl.pos).to(dev).long(), c_s.data)
-        total_pairs = total_pairs + info.n_block_pairs
-        ovf = ovf | info.pair_overflow | info.out_overflow
-        row_ovf = row_ovf | info.row_overflow
-    c = BlockMatrix(
-        ids=torch.from_numpy(plan.out_ids).to(dev),
-        data=out,
-        nnz=torch.tensor(plan.n_out, dtype=torch.int32, device=dev),
-        n_rows=a.n_rows,
-        n_cols=b.n_cols,
-        block_size=bs,
-    )
-    info = MultiplyInfo(
-        n_block_pairs=total_pairs,
-        n_out_blocks=torch.tensor(plan.n_out, dtype=torch.int32, device=dev),
-        pair_overflow=ovf,
-        out_overflow=ovf,
-        row_overflow=row_ovf,
-        plan_mismatch=false,
-        n_leaf_multiplies=torch.full((), -1, dtype=torch.int32, device=dev),
-    )
-    return c, info
+        return c, info
+
+
+spgemm_colslab.slabs = 0
